@@ -1,0 +1,144 @@
+"""The port stands alone: no JAX, no umnn_tpu, no quiet fall-back to the CPU.
+
+Each check runs in a fresh interpreter in which ``jax``, ``jaxlib`` and
+``umnn_tpu`` cannot be imported and no CUDA device is visible.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "umnn_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "umnn_tpu")
+
+BLOCKER = f"""
+import sys
+
+class _Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {BLOCKED!r}:
+            raise ImportError(f"blocked in this test: {{name}}")
+        return None
+
+sys.meta_path.insert(0, _Blocker())
+sys.path.insert(0, {str(ROOT)!r})
+"""
+
+
+def _run(body: str, cwd: Path = ROOT) -> subprocess.CompletedProcess:
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run(
+        [sys.executable, "-c", BLOCKER + body],
+        cwd=cwd, env=env, capture_output=True, text=True, timeout=300,
+    )
+
+
+def _ok(proc: subprocess.CompletedProcess) -> str:
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_blocker_blocks_jax():
+    proc = _run("import jax")
+    assert proc.returncode != 0 and "blocked in this test" in proc.stderr
+
+
+def test_every_module_imports_without_jax():
+    out = _ok(_run("""
+import importlib, pkgutil
+import umnn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(umnn_tpu_torch.__path__, "umnn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "umnn_tpu")]
+print(len(names))
+"""))
+    assert int(out.strip()) >= 12
+
+
+def test_chip_smoke_imports_without_running():
+    out = _ok(_run("""
+import importlib.util
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+print(callable(mod.main))
+"""))
+    assert out.strip() == "True"
+
+
+def test_entry_point_without_device_raises_when_cuda_is_absent():
+    out = _ok(_run("""
+import torch
+from umnn_tpu_torch import UMNNMAFFlow
+assert not torch.cuda.is_available()
+try:
+    UMNNMAFFlow(nb_flow=1, nb_in=3, hidden_derivative=(8,), hidden_embedding=(8,), embedding_s=2)
+except RuntimeError as e:
+    print("raised:", e)
+flow = UMNNMAFFlow(nb_flow=1, nb_in=3, hidden_derivative=(8,), hidden_embedding=(8,),
+                   embedding_s=2, device="cpu")
+print(flow.blocks[0].scaling.device)
+"""))
+    assert "raised: no CUDA device" in out
+    assert out.strip().endswith("cpu")
+
+
+def test_kernel_wrapper_on_cpu_tensors_leaves_the_launch_count_at_zero():
+    out = _ok(_run("""
+import torch
+from umnn_tpu_torch.ops import integrand_kernel as ik
+from umnn_tpu_torch.ops.quadrature import cc_tensors
+from umnn_tpu_torch import UMNNMAFFlow
+g = torch.Generator().manual_seed(0)
+ws = [torch.randn(8, 4, generator=g), torch.randn(1, 8, generator=g)]
+bs = [torch.randn(8, generator=g), torch.randn(1, generator=g)]
+nodes, ccw = cc_tensors(10, "cpu")
+z = ik.fused_cc_integral(ws, bs, torch.rand(5), torch.randn(5, 3), nodes, ccw)
+flow = UMNNMAFFlow(nb_flow=2, nb_in=3, hidden_derivative=(8,), hidden_embedding=(8,),
+                   embedding_s=2, backend="kernel", device="cpu")
+with torch.no_grad():
+    flow.compute_bpp(torch.randn(4, 3))
+print(ik.LAUNCHES, tuple(z.shape))
+"""))
+    assert out.strip() == "0 (5,)"
+
+
+def test_chip_smoke_exits_non_zero_without_cuda():
+    proc = _run("import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": ""},
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_import_of_jax_or_umnn_tpu_anywhere_in_the_source(path):
+    """Also the imports inside functions, which an import run never reaches."""
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in BLOCKED]
+    assert not bad, f"{path.name} imports {bad}"

@@ -1,0 +1,103 @@
+"""Builds the port's CUDA sources with one ``nvcc`` call and binds them.
+
+The sources ``umnn_tpu_torch/csrc/*.cu`` have a plain C interface, so they
+compile in seconds without PyTorch's headers. The shared library goes into
+``build/umnn_tpu_torch/`` at the root of the checkout (listed in
+``.gitignore``), under a name keyed on a hash of the sources and flags, so a
+stale library is never loaded. Nothing here runs at import: the build
+happens at the first call of :func:`load_library`, on a machine with
+``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "find_nvcc", "load_library"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "umnn_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C functions of csrc/: name -> (argtypes, restype). Every pointer, the
+# stream included, is a c_void_p, or ctypes would cut it to 32 bits.
+SIGNATURES = {
+    "umnn_integrand_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_fwd_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or ``PATH``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found in $CUDA_HOME/bin, /usr/local/cuda/bin or PATH: the "
+            "CUDA kernels of umnn_tpu_torch need the CUDA toolkit to build"
+        )
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libumnn_tpu_torch_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library unless it is there."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The bound library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
+    return _lib
