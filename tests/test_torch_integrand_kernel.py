@@ -139,6 +139,6 @@ def test_tensors_on_several_devices_raise(setup):
 
 def test_cpu_tensors_run_the_plain_version_without_a_launch(setup):
     layers, h = setup
-    before = ik.LAUNCHES
+    before = dict(ik.LAUNCHES)
     _port(layers, _x("pos"), h, 0.01)
     assert ik.LAUNCHES == before

@@ -105,9 +105,19 @@ flow = UMNNMAFFlow(nb_flow=2, nb_in=3, hidden_derivative=(8,), hidden_embedding=
                    embedding_s=2, backend="kernel", device="cpu")
 with torch.no_grad():
     flow.compute_bpp(torch.randn(4, 3))
-print(ik.LAUNCHES, tuple(z.shape))
+print(sum(ik.LAUNCHES.values()), tuple(z.shape))
 """))
     assert out.strip() == "0 (5,)"
+
+
+def test_training_driver_runs_without_jax_and_refuses_a_missing_card():
+    proc = _run("""
+import runpy
+sys.argv = ["train_mnist", "-nb_flow", "1", "-nb_epoch", "1"]
+runpy.run_module("umnn_tpu_torch.examples.train_mnist", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
 
 
 def test_chip_smoke_exits_non_zero_without_cuda():

@@ -1,9 +1,11 @@
 """umnn_tpu_torch: the PyTorch and CUDA port of umnn_tpu for NVIDIA Hopper.
 
 It stands beside the JAX package, which stays the reference, and imports
-nothing of it. So far it serves the UMNN-MAF flow's likelihood: the flow,
-its blocks, MADE, the Clenshaw-Curtis quadrature and the hand-written CUDA
-kernel of the fused integrand sweep (forward only).
+nothing of it. So far it scores and trains the UMNN-MAF flow: the flow, its
+blocks, MADE, the Clenshaw-Curtis quadrature with its Leibniz-rule
+backward, the optimizer and train step (``training.loops``), the MNIST
+training driver (``examples.train_mnist``) and the hand-written CUDA
+kernels of the fused integrand sweep, forward and backward.
 """
 
 from umnn_tpu_torch.models.flow import UMNNMAFFlow

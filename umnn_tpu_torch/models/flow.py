@@ -1,8 +1,7 @@
 """UMNNMAFFlow: a stack of UMNN-MAF blocks with a feature reversal between
 blocks.
 
-PyTorch counterpart of `umnn_tpu/models/flow.py:26-125`, forward only and
-unconditional. The forward composes ``rev . net_k . rev . ... . rev . net_0``
+PyTorch counterpart of `umnn_tpu/models/flow.py:26-125`, unconditional. The forward composes ``rev . net_k . rev . ... . rev . net_0``
 and a trailing reversal restores the original order; the reversal alternates
 the autoregressive direction between blocks.
 """

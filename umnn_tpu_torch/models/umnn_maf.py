@@ -1,7 +1,7 @@
 """UMNN-MAF: one autoregressive monotone flow block and its networks.
 
 PyTorch counterpart of `umnn_tpu/models/umnn_maf.py` (`:64-111,133-185,
-188-391`), forward only and unconditional. One block computes
+188-391`), unconditional. One block computes
 
     z_d = exp(s_d) * ( ∫_0^{x_d} f_d(t, h_d(x_{<d})) dt + z0_d )
 
@@ -14,7 +14,10 @@ The integral's ``backend``: ``"kernel"`` (counterpart of JAX's ``"pallas"``)
 calls :func:`~umnn_tpu_torch.ops.integrand_kernel.fused_cc_integral`, which
 launches the CUDA kernel on the card and its plain version on the CPU;
 ``"torch"`` (counterpart of ``"xla"``) is the plain node-megabatch
-quadrature; ``"auto"`` takes the kernel on CUDA and the plain path on CPU.
+quadrature with the Leibniz-rule backward; ``"auto"`` takes the kernel on
+CUDA and the plain path on CPU. Gradients reach every parameter on both
+routes; the scaling is a buffer and gets none, as JAX's ``stop_gradient``
+makes it (`:235-237,267,363`).
 On the kernel route an integrand the kernel cannot take (an output other
 than ELU+1, no hidden layer) raises; only ``"torch"`` runs it on the card.
 """

@@ -34,6 +34,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "umnn_integrand_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_fwd_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_bwd": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_bwd_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_bwd_grid": ([_I], _I),
     "umnn_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

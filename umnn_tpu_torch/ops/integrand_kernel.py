@@ -1,15 +1,18 @@
 """Fused Clenshaw-Curtis integral of the UMNN integrand MLP.
 
 PyTorch counterpart of `umnn_tpu/ops/integrand_kernel.py::fused_cc_integral`
-(`:1290-1357`), forward only. Per row r:
+(`:1290-1357`) and its custom VJP (`:1083-1198,1287`). Per row r:
 
     z_r = x_r/2 * sum_n w_n * ELU+1(MLP([x_r * s_n, h_r])),  s_n = (t_n+1)/2
 
-with LeakyReLU(neg_slope) hidden layers. On CUDA tensors the wrapper
-launches the hand-written kernel of ``csrc/integrand_fwd.cu`` (the Hopper
-port of the TPU kernel `_fwd_kernel`, `:106-153`) or raises; on CPU tensors
-it runs :func:`fused_cc_integral_plain`, the same arithmetic in plain
-PyTorch. The backward (`_bwd_kernel`) is not ported yet.
+with LeakyReLU(neg_slope) hidden layers. On CUDA tensors the wrapper runs
+an autograd Function whose forward launches ``csrc/integrand_fwd.cu`` (the
+Hopper port of `_fwd_kernel`, `:106-153`) and whose backward launches
+``csrc/integrand_bwd.cu`` (the port of `_bwd_kernel`, `:156-317`, with the
+host fold of `_fused_vjp_bwd`), or raises. The gradient is the exact
+derivative of the K-node approximation, x's node path included. On CPU
+tensors the wrapper runs :func:`fused_cc_integral_plain`, the same
+arithmetic in plain PyTorch, and autograd differentiates it.
 
 Weights follow ``nn.Linear``: ``ws[l]`` is ``[dout, din]``, ``bs[l]`` is
 ``[dout]``; the first layer's input is ``[x, h]`` and the last has one output.
@@ -22,10 +25,16 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["LAUNCHES", "fused_cc_integral", "fused_cc_integral_plain"]
+__all__ = [
+    "LAUNCHES",
+    "fused_cc_integral",
+    "fused_cc_integral_bwd",
+    "fused_cc_integral_bwd_plain",
+    "fused_cc_integral_plain",
+]
 
-# Kernel launches since the count was last set to 0.
-LAUNCHES = 0
+# Launches of each kernel since its count was last set to 0.
+LAUNCHES = {"integrand_fwd": 0, "integrand_bwd": 0}
 
 
 def _leaky(v: torch.Tensor, neg_slope: float) -> torch.Tensor:
@@ -34,6 +43,21 @@ def _leaky(v: torch.Tensor, neg_slope: float) -> torch.Tensor:
 
 def _eluplus(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v > 0, v + 1.0, torch.exp(torch.clamp(v, max=0.0)))
+
+
+def _node_values_plain(ws, bs, x, h, nodes, neg_slope) -> torch.Tensor:
+    """``f`` at every (row, node) pair, ``[R, K]``, with ``[R, K, width]``
+    activations."""
+    e = h.shape[-1]
+    xf = x.reshape(-1)
+    hf = h.reshape(-1, e)
+    s = (nodes.reshape(-1) + 1.0) * 0.5
+    ph = hf @ ws[0][:, 1:].T + bs[0]  # node-invariant part of layer 1, [R, H1]
+    xs = xf[:, None] * s[None, :]  # [R, K]
+    a = _leaky(ph[:, None, :] + xs[..., None] * ws[0][:, 0], neg_slope)
+    for w, b in zip(ws[1:-1], bs[1:-1]):
+        a = _leaky(a @ w.T + b, neg_slope)
+    return _eluplus(a @ ws[-1][0] + bs[-1][0])
 
 
 def fused_cc_integral_plain(
@@ -45,18 +69,39 @@ def fused_cc_integral_plain(
     ccw: torch.Tensor,
     neg_slope: float = 0.01,
 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: ``[R, K, width]`` activations."""
-    e = h.shape[-1]
-    xf = x.reshape(-1)
-    hf = h.reshape(-1, e)
-    s = (nodes.reshape(-1) + 1.0) * 0.5
-    ph = hf @ ws[0][:, 1:].T + bs[0]  # node-invariant part of layer 1, [R, H1]
-    xs = xf[:, None] * s[None, :]  # [R, K]
-    a = _leaky(ph[:, None, :] + xs[..., None] * ws[0][:, 0], neg_slope)
-    for w, b in zip(ws[1:-1], bs[1:-1]):
-        a = _leaky(a @ w.T + b, neg_slope)
-    f = _eluplus(a @ ws[-1][0] + bs[-1][0])  # [R, K]
-    return ((f * ccw.reshape(-1)).sum(-1) * xf * 0.5).reshape(x.shape)
+    """The forward kernel's function in plain PyTorch."""
+    f = _node_values_plain(ws, bs, x, h, nodes, neg_slope)
+    return ((f * ccw.reshape(-1)).sum(-1) * x.reshape(-1) * 0.5).reshape(x.shape)
+
+
+def fused_cc_integral_bwd_plain(
+    ws: Sequence[torch.Tensor],
+    bs: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    h: torch.Tensor,
+    nodes: torch.Tensor,
+    ccw: torch.Tensor,
+    g: torch.Tensor,
+    neg_slope: float = 0.01,
+):
+    """The backward kernel's function in plain PyTorch: autograd through
+    :func:`fused_cc_integral_plain` with cotangent ``g``.
+
+    Returns ``(dws, dbs, dx, dh, S)``, with ``dx`` the whole derivative
+    (node path plus ``g S/2``) and ``S_r = sum_n w_n f_{r,n}``.
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (*ws, *bs, x, h)]
+        n = len(ws)
+        lws, lbs, lx, lh = leaves[:n], leaves[n : 2 * n], leaves[-2], leaves[-1]
+        f = _node_values_plain(lws, lbs, lx, lh, nodes, neg_slope)
+        S = (f * ccw.reshape(-1)).sum(-1)
+        z = (S * lx.reshape(-1) * 0.5).reshape(x.shape)
+        grads = torch.autograd.grad(z, leaves, g)
+    return (
+        list(grads[:n]), list(grads[n : 2 * n]), grads[-2], grads[-1],
+        S.detach().reshape(x.shape),
+    )
 
 
 def fused_cc_integral(
@@ -73,37 +118,84 @@ def fused_cc_integral(
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
+    tensors = [x, h, nodes, ccw, *ws, *bs]
+    if not _on_card("fused_cc_integral", ws, bs, tensors):
+        return fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, neg_slope)
+    widths = _check(ws, bs, x, h, nodes, ccw, tensors)
+    return _FusedIntegral.apply(x, h, nodes, ccw, float(neg_slope), widths, *ws, *bs)
+
+
+def fused_cc_integral_bwd(
+    ws: Sequence[torch.Tensor],
+    bs: Sequence[torch.Tensor],
+    x: torch.Tensor,
+    h: torch.Tensor,
+    nodes: torch.Tensor,
+    ccw: torch.Tensor,
+    g: torch.Tensor,
+    neg_slope: float = 0.01,
+):
+    """The backward of :func:`fused_cc_integral` for cotangent ``g``:
+    ``(dws, dbs, dx, dh, S)`` as :func:`fused_cc_integral_bwd_plain` gives
+    them. CPU tensors run that plain version; CUDA tensors launch the
+    backward kernel (what the autograd Function's backward calls)."""
+    tensors = [x, h, nodes, ccw, g, *ws, *bs]
+    if not _on_card("fused_cc_integral_bwd", ws, bs, tensors):
+        return fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g, neg_slope)
+    widths = _check(ws, bs, x, h, nodes, ccw, tensors, grad=True)
+    return _launch_bwd(ws, bs, x, h, nodes, ccw, g, float(neg_slope), widths)
+
+
+def _on_card(name: str, ws, bs, tensors) -> bool:
+    """Whether the call goes to a kernel (CUDA tensors) or to the plain
+    version (CPU tensors); raises on what neither takes."""
     if len(ws) < 2:
-        # the kernel keeps the first (node-invariant) and output layers apart
+        # the kernels keep the first (node-invariant) and output layers apart
         raise ValueError(
-            "fused_cc_integral requires an integrand MLP with at least one "
+            f"{name} requires an integrand MLP with at least one "
             "hidden layer; use the plain quadrature path for single-layer nets"
         )
     if len(bs) != len(ws):
         raise ValueError(f"{len(ws)} weights but {len(bs)} biases")
-    tensors = [x, h, nodes, ccw, *ws, *bs]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
-        raise ValueError(f"fused_cc_integral: tensors on several devices {devices}")
-    if x.device.type == "cpu":
-        return fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, neg_slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_cc_integral: no kernel for device {x.device}")
-    return _launch(ws, bs, x, h, nodes, ccw, neg_slope, tensors)
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    device = tensors[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+    return device.type == "cuda"
 
 
-def _launch(ws, bs, x, h, nodes, ccw, neg_slope, tensors) -> torch.Tensor:
-    global LAUNCHES
+class _FusedIntegral(torch.autograd.Function):
+    """Forward: ``integrand_fwd``; backward: ``integrand_bwd``, which
+    recomputes the forward from the saved inputs (nothing of the node
+    sweep is saved) and returns dW in ``nn.Linear``'s layout."""
+
+    @staticmethod
+    def forward(ctx, x, h, nodes, ccw, neg_slope, widths, *wbs):
+        n = len(wbs) // 2
+        ctx.neg_slope, ctx.widths = neg_slope, widths
+        ctx.save_for_backward(x, h, nodes, ccw, *wbs)
+        return _launch_fwd(wbs[:n], wbs[n:], x, h, nodes, ccw, neg_slope, widths)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, h, nodes, ccw, *wbs = ctx.saved_tensors
+        n = len(wbs) // 2
+        dws, dbs, dx, dh, _ = _launch_bwd(
+            wbs[:n], wbs[n:], x, h, nodes, ccw, g.contiguous(), ctx.neg_slope, ctx.widths
+        )
+        return dx, dh, None, None, None, None, *dws, *dbs
+
+
+def _check(ws, bs, x, h, nodes, ccw, tensors, grad=None) -> tuple:
+    """What the kernels take (the backward's too where ``grad``, by default
+    where a gradient is wanted); returns the widths ``[1+e, ..., 1]``."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"fused_cc_integral: the kernel takes float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("fused_cc_integral: the kernel takes contiguous tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "fused_cc_integral: the CUDA kernel has no backward yet; "
-            "call it under torch.no_grad()"
-        )
     if h.dim() != x.dim() + 1 or h.shape[:-1] != x.shape:
         raise ValueError(f"h {tuple(h.shape)} does not match x {tuple(x.shape)} + [e]")
     K = nodes.numel()
@@ -118,41 +210,107 @@ def _launch(ws, bs, x, h, nodes, ccw, neg_slope, tensors) -> torch.Tensor:
             )
     if widths[-1] != 1:
         raise ValueError(f"the integrand has {widths[-1]} outputs, the kernel takes 1")
+    # where a gradient is wanted, both kernels must take these widths before
+    # the forward runs, or a training step would fail only in its backward
+    if grad is None:
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    for kernel in ("fwd", "bwd") if grad else ("fwd",):
+        _smem_check(kernel, widths, K, x.device)
+    return tuple(widths)
 
+
+def _smem_check(kernel: str, widths, K: int, device):
+    """The bound library and the C widths array, once the kernel's own C
+    helper (the one authority on its limits) has accepted the widths."""
     from umnn_tpu_torch.ops._build import load_library
 
     lib = load_library()
     c_widths = (ctypes.c_int * len(widths))(*widths)
-    smem = lib.umnn_integrand_fwd_smem_bytes(K, ctypes.cast(c_widths, ctypes.c_void_p), len(ws))
+    ptr = ctypes.cast(c_widths, ctypes.c_void_p)
+    smem = getattr(lib, f"umnn_integrand_{kernel}_smem_bytes")(K, ptr, len(widths) - 1)
     if smem < 0:
-        # the C side holds the limits: MAX_LAYERS and MAX_WIDTH of the .cu file
+        # MAX_LAYERS and MAX_WIDTH of the .cu file
         raise ValueError(
-            f"widths {widths}: beyond the layer count or hidden width that "
-            f"csrc/integrand_fwd.cu takes"
+            f"widths {list(widths)}: beyond the layer count or hidden width that "
+            f"csrc/integrand_{kernel}.cu takes"
         )
-    props = torch.cuda.get_device_properties(x.device)
+    props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", smem)
     if smem > limit:
         raise ValueError(
-            f"widths {widths} with {K} nodes need {smem} bytes of shared memory; "
-            f"the card gives a block {limit}"
+            f"widths {list(widths)} with {K} nodes need {smem} bytes of shared memory "
+            f"in integrand_{kernel}; the card gives a block {limit}"
         )
+    return lib, c_widths, ptr
+
+
+def _packed_params(ws, bs) -> torch.Tensor:
+    """One buffer: per layer W^T ``[din, dout]`` row-major, then b."""
+    return torch.cat([t.reshape(-1) for w, b in zip(ws, bs) for t in (w.T.contiguous(), b)])
+
+
+def _raise_on(rc: int, lib, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed: {lib.umnn_cuda_error_string(rc).decode()}"
+        )
+
+
+def _launch_fwd(ws, bs, x, h, nodes, ccw, neg_slope, widths) -> torch.Tensor:
+    K = nodes.numel()
+    lib, c_widths, ptr = _smem_check("fwd", widths, K, x.device)
     R = x.numel()
     out = torch.empty(R, dtype=torch.float32, device=x.device)
     if R == 0:
         return out.reshape(x.shape)
-    # one buffer: per layer W^T [din, dout] row-major, then b
-    params = torch.cat([t.reshape(-1) for w, b in zip(ws, bs) for t in (w.T.contiguous(), b)])
+    params = _packed_params(ws, bs)
     with torch.cuda.device(x.device):
         rc = lib.umnn_integrand_fwd(
             x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(),
-            ccw.data_ptr(), out.data_ptr(), R, K,
-            ctypes.cast(c_widths, ctypes.c_void_p), len(ws), float(neg_slope),
+            ccw.data_ptr(), out.data_ptr(), R, K, ptr, len(ws), float(neg_slope),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"integrand_fwd kernel launch failed: {lib.umnn_cuda_error_string(rc).decode()}"
-        )
-    LAUNCHES += 1
+    _raise_on(rc, lib, "integrand_fwd")
+    LAUNCHES["integrand_fwd"] += 1
     return out.reshape(x.shape)
+
+
+def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths):
+    """``(dws, dbs, dx, dh, S)`` as :func:`fused_cc_integral_bwd_plain`
+    gives them; the kernel itself adds ``g S/2`` to dx."""
+    K = nodes.numel()
+    lib, c_widths, ptr = _smem_check("bwd", widths, K, x.device)
+    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match x")
+    R = x.numel()
+    dev = x.device
+    n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    dx = torch.empty(R, dtype=torch.float32, device=dev)
+    dh = torch.empty(h.shape, dtype=torch.float32, device=dev)
+    S = torch.empty(R, dtype=torch.float32, device=dev)
+    # dparams: per layer dW in nn.Linear's [dout, din] layout, then db
+    dparams = torch.zeros(n_params, dtype=torch.float32, device=dev)
+    if R > 0:
+        with torch.cuda.device(dev):
+            blocks = lib.umnn_integrand_bwd_grid(R)
+            if blocks < 1:
+                _raise_on(-blocks or 1, lib, "integrand_bwd")
+            # one slice of dW/db partial sums per block of the grid
+            partial = torch.empty(blocks * n_params, dtype=torch.float32, device=dev)
+            params = _packed_params(ws, bs)
+            rc = lib.umnn_integrand_bwd(
+                x.data_ptr(), h.data_ptr(), params.data_ptr(),
+                nodes.data_ptr(), ccw.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                dh.data_ptr(), S.data_ptr(), partial.data_ptr(), dparams.data_ptr(),
+                R, K, blocks, ptr, len(ws), float(neg_slope),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _raise_on(rc, lib, "integrand_bwd")
+        LAUNCHES["integrand_bwd"] += 1
+    dws, dbs, off = [], [], 0
+    for w, b in zip(ws, bs):
+        dws.append(dparams[off : off + w.numel()].view(w.shape))
+        off += w.numel()
+        dbs.append(dparams[off : off + b.numel()].view(b.shape))
+        off += b.numel()
+    return dws, dbs, dx.reshape(x.shape), dh, S.reshape(x.shape)

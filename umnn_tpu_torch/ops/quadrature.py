@@ -1,10 +1,10 @@
-"""Clenshaw-Curtis quadrature engine, forward only.
+"""Clenshaw-Curtis quadrature engine.
 
 PyTorch counterpart of `umnn_tpu/ops/quadrature.py`: the node/weight rule
-(`:62-99`) and the plain node-megabatch quadrature of the reference's
-"CCParallel" solver (`integrate`, `neural_integral`, `:130-182,306-331`).
-The memory-efficient Leibniz-rule backward (`:252-303`) is not ported yet;
-gradients through :func:`integrate` come from autograd over the node sum.
+(`:62-127`), the plain node-megabatch quadrature of the reference's
+"CCParallel" solver (`integrate`, `:154-175`) and :func:`neural_integral`
+with the memory-efficient Leibniz-rule backward (`:251-331`), which saves
+only its inputs and recomputes the node megabatch in the backward.
 
 With nodes ``t_i = cos(i*pi/N)`` (from +1 down to -1) and CC weights ``w_i``:
 
@@ -18,7 +18,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["cc_quadrature", "integrate", "neural_integral"]
+__all__ = [
+    "cc_quadrature",
+    "cc_tensors",
+    "integrate",
+    "neural_integral",
+    "padded_cc_quadrature",
+]
 
 # f(x, h) -> values, on the last axis; leading batch axes broadcast.
 Integrand = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -68,6 +74,38 @@ def cc_tensors(
     )
 
 
+def padded_cc_quadrature(
+    nb_steps: int, max_steps: int, device: torch.device | str, dtype=torch.float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """CC nodes and weights padded to a fixed length ``max_steps + 1``.
+
+    Padding nodes repeat the last abscissa (t = -1) and carry weight 0, so
+    one shape serves any step count (randomized-steps training).
+    """
+    pad = max_steps - nb_steps
+    if pad < 0:
+        raise ValueError(f"max_steps {max_steps} < nb_steps {nb_steps}")
+    nodes, weights = cc_quadrature(nb_steps)
+    nodes = np.concatenate([nodes, np.full(pad, nodes[-1])])
+    weights = np.concatenate([weights, np.zeros(pad)])
+    return (
+        torch.as_tensor(nodes, dtype=dtype, device=device),
+        torch.as_tensor(weights, dtype=dtype, device=device),
+    )
+
+
+def _node_positions(x0: torch.Tensor, xT: torch.Tensor, nodes: torch.Tensor) -> torch.Tensor:
+    """Nodes on [x0, xT]: ``[..., K, D]`` from ``[..., D]``, xT down to x0."""
+    half = (xT - x0) * 0.5
+    return x0[..., None, :] + half[..., None, :] * (nodes[:, None] + 1.0)
+
+
+def _eval_nodes(integrand, X, h, inv_f):
+    K = X.shape[-2]
+    f = integrand(X, h[..., None, :].expand(*h.shape[:-1], K, h.shape[-1]))
+    return 1.0 / f if inv_f else f
+
+
 def integrate(
     integrand: Integrand,
     x0: torch.Tensor,
@@ -82,15 +120,55 @@ def integrate(
     ``x0, xT: [..., D]``, ``h: [..., E]`` -> integral ``[..., D]``. The node
     axis is a leading batch axis of one integrand call, shape ``[..., K, D]``.
     """
-    half = (xT - x0) * 0.5
-    X = x0[..., None, :] + half[..., None, :] * (nodes[:, None] + 1.0)
-    K = X.shape[-2]
-    h_b = h[..., None, :].expand(*h.shape[:-1], K, h.shape[-1])
-    f = integrand(X, h_b)
-    if inv_f:
-        f = 1.0 / f
-    z = torch.einsum("...kd,k->...d", f, weights)
-    return z * half
+    f = _eval_nodes(integrand, _node_positions(x0, xT, nodes), h, inv_f)
+    return torch.einsum("...kd,k->...d", f, weights) * (xT - x0) * 0.5
+
+
+class _NeuralIntegral(torch.autograd.Function):
+    """:func:`integrate` with the Leibniz-rule backward of `_ni_fwd`/`_ni_bwd`.
+
+    The integrand's parameters come in as inputs (``params``) so that their
+    gradients come out; the forward runs without a graph and saves only the
+    inputs. The backward gives the endpoints ``+-g f(x)`` (``1/f`` under
+    ``inv_f``) and, for the parameters and ``h``, one VJP through the node
+    megabatch with per-node cotangent ``g (xT-x0)/2 w_i``, the node
+    positions held constant.
+    """
+
+    @staticmethod
+    def forward(ctx, integrand, inv_f, x0, xT, h, nodes, weights, *params):
+        ctx.integrand, ctx.inv_f = integrand, inv_f
+        ctx.save_for_backward(x0, xT, h, nodes, weights, *params)
+        return integrate(integrand, x0, xT, h, nodes, weights, inv_f)
+
+    @staticmethod
+    def backward(ctx, g):
+        x0, xT, h, nodes, weights, *params = ctx.saved_tensors
+        integrand, inv_f = ctx.integrand, ctx.inv_f
+        need = ctx.needs_input_grad
+
+        def f_ends(x):
+            f = integrand(x, h)
+            return 1.0 / f if inv_f else f
+
+        with torch.no_grad():
+            dx0 = -f_ends(x0) * g if need[2] else None
+            dxT = f_ends(xT) * g if need[3] else None
+        wrt = [p for p, n in zip(params, need[7:]) if n]
+        dh, dparams = None, [None] * len(params)
+        if need[4] or wrt:
+            with torch.enable_grad():
+                hh = h.detach().requires_grad_(need[4])
+                X = _node_positions(x0, xT, nodes).detach()
+                f = _eval_nodes(integrand, X, hh, inv_f)
+                ct = (g * (xT - x0) * 0.5)[..., None, :] * weights[:, None]
+                inputs = ([hh] if need[4] else []) + wrt
+                grads = list(torch.autograd.grad(f, inputs, ct, allow_unused=True))
+            if need[4]:
+                dh = grads.pop(0)
+            it = iter(grads)
+            dparams = [next(it) if n else None for n in need[7:]]
+        return (None, None, dx0, dxT, dh, None, None, *dparams)
 
 
 def neural_integral(
@@ -104,9 +182,12 @@ def neural_integral(
     weights: torch.Tensor | None = None,
     inv_f: bool = False,
 ) -> torch.Tensor:
-    """``∫_{x0}^{xT} f(t, h) dt``: pass ``nb_steps`` or explicit nodes/weights."""
+    """``∫_{x0}^{xT} f(t, h) dt`` with the Leibniz-rule backward; pass
+    ``nb_steps`` or explicit nodes/weights. A module's parameters get
+    gradients; a plain function's closure does not."""
     if nodes is None or weights is None:
         if nb_steps is None:
             raise ValueError("pass nb_steps or explicit nodes/weights")
         nodes, weights = cc_tensors(nb_steps, xT.device, xT.dtype)
-    return integrate(integrand, x0, xT, h, nodes, weights, inv_f)
+    params = tuple(integrand.parameters()) if isinstance(integrand, torch.nn.Module) else ()
+    return _NeuralIntegral.apply(integrand, inv_f, x0, xT, h, nodes, weights, *params)

@@ -1,0 +1,175 @@
+"""Optimizer, train step and the host-side helpers of a training loop.
+
+PyTorch counterpart of `umnn_tpu/training/loops.py`: ``make_optimizer``
+(`:83-108`), the train step with its non-finite guard (`:111-191`),
+``finite_mean`` (`:194-207`), ``ReduceLROnPlateau`` (`:270-307`) and
+``batch_iter`` (`:310-332`). Not ported yet: the gradient-accumulation
+step, the retry of transient compile failures (a TPU workaround), the mesh
+shardings and ``post_update`` (the Lipschitz projection).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable, Iterator, Optional
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Optimizer",
+    "ReduceLROnPlateau",
+    "batch_iter",
+    "finite_mean",
+    "make_optimizer",
+    "make_train_step",
+]
+
+
+class Optimizer:
+    """Value clip of the gradient, then torch's Adam or Adamax.
+
+    The order is JAX's: ``optax.clip``, then ``add_decayed_weights`` (L2
+    decay added to the gradient, which ``torch.optim.Adam(weight_decay=)``
+    does), then the Adam scaling and ``-lr``. As in JAX, ``"adamax"`` takes
+    eps 1e-7 and no weight decay.
+    """
+
+    def __init__(
+        self,
+        params: Iterable[torch.nn.Parameter],
+        name: str = "adam",
+        lr: float = 1e-3,
+        weight_decay: float = 0.0,
+        grad_clip: Optional[float] = 1.0,
+    ):
+        self.params = [p for p in params if p.requires_grad]
+        self.grad_clip = grad_clip
+        if name == "adam":
+            self.inner = torch.optim.Adam(self.params, lr=lr, weight_decay=weight_decay)
+        elif name == "adamax":
+            self.inner = torch.optim.Adamax(self.params, lr=lr, eps=1e-7)
+        else:
+            raise ValueError(f"unknown optimizer {name}")
+
+    @property
+    def lr(self) -> float:
+        return self.inner.param_groups[0]["lr"]
+
+    @lr.setter
+    def lr(self, value: float) -> None:
+        for group in self.inner.param_groups:
+            group["lr"] = value
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        """Clip the gradients in place and update the parameters."""
+        if self.grad_clip is not None:
+            torch.nn.utils.clip_grad_value_(self.params, self.grad_clip)
+        self.inner.step()
+
+
+def make_optimizer(
+    params: Iterable[torch.nn.Parameter],
+    name: str = "adam",
+    lr: float = 1e-3,
+    weight_decay: float = 0.0,
+    grad_clip: Optional[float] = 1.0,
+) -> Optimizer:
+    """:class:`Optimizer` over ``params``, with JAX's argument order after them."""
+    return Optimizer(params, name, lr, weight_decay, grad_clip)
+
+
+def _grads_finite(loss: torch.Tensor, params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """One boolean tensor: the loss and every gradient are finite."""
+    flags = [torch.isfinite(loss).all()]
+    flags += [torch.isfinite(p.grad).all() for p in params if p.grad is not None]
+    return torch.stack(flags).all()
+
+
+def make_train_step(
+    loss_fn: Callable[..., torch.Tensor], optimizer: Optimizer
+) -> Callable[..., torch.Tensor]:
+    """``step(*batch) -> loss``: loss, backward, clip, update.
+
+    Non-finite guard: when the loss or any gradient is not finite, the
+    update is skipped and the parameters, Adam's moments and its step count
+    stay as they were (JAX selects the old state with ``jnp.where``). The
+    check costs one read of a boolean by the host per step.
+    """
+
+    def step(*batch) -> torch.Tensor:
+        optimizer.zero_grad()
+        loss = loss_fn(*batch)
+        loss.backward()
+        if bool(_grads_finite(loss, optimizer.params)):
+            optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def finite_mean(losses) -> tuple[float, int]:
+    """Mean of the finite entries of per-batch losses, and how many were not.
+
+    A batch whose loss was not finite was skipped by the step's guard, so
+    the epoch metric leaves it out. The mean is ``inf`` if no loss is finite.
+    """
+    arr = torch.stack([torch.as_tensor(l).detach().cpu() for l in losses]).numpy()
+    finite = np.isfinite(arr)
+    mean = float(arr[finite].mean()) if finite.any() else float("inf")
+    return mean, int((~finite).sum())
+
+
+@dataclasses.dataclass
+class ReduceLROnPlateau:
+    """torch's ReduceLROnPlateau as the reference configures it: mode
+    'min', relative threshold 1e-2, the rate cut by ``factor`` once more
+    than ``patience`` epochs in a row did not improve, cuts below ``eps``
+    skipped."""
+
+    factor: float = 0.5
+    patience: int = 5
+    threshold: float = 1e-2
+    min_lr: float = 0.0
+    eps: float = 1e-8
+    best: float = float("inf")
+    bad_epochs: int = 0
+
+    def _is_better(self, metric: float) -> bool:
+        return metric < self.best * (1.0 - self.threshold)
+
+    def update(self, metric: float, lr: float) -> float:
+        if self._is_better(metric):
+            self.best = metric
+            self.bad_epochs = 0
+            return lr
+        self.bad_epochs += 1
+        if self.bad_epochs > self.patience:
+            self.bad_epochs = 0
+            new_lr = max(lr * self.factor, self.min_lr)
+            if lr - new_lr > self.eps:
+                return new_lr
+        return lr
+
+
+def batch_iter(
+    x: np.ndarray,
+    batch_size: int,
+    rng: np.random.RandomState,
+    shuffle: bool = True,
+    with_counts: bool = False,
+) -> Iterator:
+    """Host-side minibatches; the last is filled up by wrapping round to the
+    start, so every batch has one shape. With ``with_counts`` it yields
+    ``(batch, n_valid)``, so that an evaluation can skip the repeated rows."""
+    n = x.shape[0]
+    idx = rng.permutation(n) if shuffle else np.arange(n)
+    for i in range(0, n, batch_size):
+        sel = idx[i : i + batch_size]
+        n_valid = len(sel)
+        if n_valid < batch_size:
+            sel = np.concatenate([sel, idx[: batch_size - n_valid]])
+        yield (x[sel], n_valid) if with_counts else x[sel]
