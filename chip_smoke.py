@@ -22,10 +22,25 @@ scipy. Phases, each printing one flushed JSON line:
            forward kernel's launch count over one compute_ll must be 5;
 6. train   the same flow trains: gradients of -mean(compute_ll) on the
            kernel route against the plain (Leibniz) route, one Adam step
-           with 5 launches of each kernel, then ten steps on fresh batches
-           with finite, falling loss;
-7. timing  CUDA-event medians of both kernels, their plain versions,
-           compute_bpp and a training step, beside the kernels' bounds.
+           with 5 launches of each unpacked kernel and none of the pack-2
+           pair, then ten steps on fresh batches with finite, falling loss;
+7. kernel_p2  the pack-2 forward kernel against its plain version at one
+           block of the calibration flow (3,000 rows, 51 nodes, widths
+           31-50-50-50-50-1) and edge cases (101 padded nodes, an even K,
+           x = 0, x < 0, 77 rows, ReLU, the 64-wide limit); pack2=True on a
+           65-wide layer raises, a 32-wide integrand stays unpacked;
+8. bwd_p2  the pack-2 backward kernel, through the autograd Function and
+           through its wrapper, against the float64 plain version at the
+           same cases; bit-identical reruns;
+9. calibration  the full-width known-entropy calibration flow (random
+           weights from a seed): gradients on the kernel route against the
+           Leibniz route, 5 + 5 pack-2 launches per training step and none
+           of the unpacked pair, then the port's calibration driver for 5
+           epochs on full data, which must pass its 0.05-nat gate;
+10. timing CUDA-event medians of whole calls and profiler device times of
+           every kernel, their plain versions, compute_bpp and a training
+           step of each flow, beside the kernels' bounds; the unpacked pair
+           also at the calibration block, as the comparison route.
 
 Then a ``kernels`` line, the nvidia-smi name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -35,7 +50,10 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -46,6 +64,7 @@ import torch
 
 from umnn_tpu_torch import UMNNMAFFlow
 from umnn_tpu_torch.data.images import synthetic_mnist_ar1
+from umnn_tpu_torch.examples import train_calibration
 from umnn_tpu_torch.nn.core import torch_linear_init
 from umnn_tpu_torch.ops import _build
 from umnn_tpu_torch.ops import integrand_kernel as ik
@@ -63,6 +82,17 @@ MNIST = dict(
 BATCH = 100
 TRAIN_STEPS = 10
 WIDTHS = [1 + MNIST["embedding_s"], *MNIST["hidden_derivative"], 1]
+# The known-entropy calibration flow: examples/train_calibration.py's
+# defaults (the UCI parity widths). Its integrand is at most 64 wide, so it
+# runs on the pack-2 kernel pair.
+CALIB = dict(
+    nb_flow=5, nb_in=6, hidden_derivative=(50, 50, 50, 50), hidden_embedding=(512, 512),
+    embedding_s=30, nb_steps=50,
+)
+CALIB_BATCH = 500
+CALIB_WIDTHS = [1 + CALIB["embedding_s"], *CALIB["hidden_derivative"], 1]
+CALIB_EPOCHS = 5  # the short gate at full width on full data
+NONE_LAUNCHED = {k: 0 for k in ik.LAUNCHES}
 
 # Forward kernel against its plain version, both float32 with IEEE FMA on
 # the card: they differ only in the order of sums (the kernel's
@@ -86,6 +116,19 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_ROW_SCALE = 1e-5
 BWD_PARAM_SCALE = 1e-4
 BWD_PLAIN_FACTOR = 8.0
+# LeakyReLU kinks, for the pack-2 backward's cases. Where a hidden
+# pre-activation of some (row, node) lies within float32 rounding of 0, the
+# kernel's float32 sums may land on the other side of 0 than the float64
+# ones, and the derivative of that item's term then differs by (1 - slope)
+# of it: both are derivatives of the function on one side of the kink.
+# Phase bwd_p2 failed on the card at x < 0 (1,000 rows) for this alone: the
+# kernel's dW0 error against float64 was 1.06 of the hold limit, the
+# float32 plain version's 0.003 of it. So phase bwd_p2 holds the kernel
+# against the float64 backward taken on the kernel's own sides of 0
+# (kernel_branches: its float32 forward, FMA by FMA in its order), by the
+# hold rule, with no row or item left out; and reports how many items its
+# float32 sums put on the other side of 0, and its error against float64's
+# own sides, unchecked.
 # Whole flow, kernel path against the plain quadrature path: five blocks in
 # sequence, each block's integral error feeding the next block's MADE and
 # integrand, and ll summing 784 x 5 per-dimension terms.
@@ -169,6 +212,55 @@ def median_ms(fn, n: int = 10, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def launched_since(before: dict) -> dict:
+    """The kernels launched since ``before`` (a copy of ``ik.LAUNCHES``)."""
+    return {k: v - before[k] for k, v in ik.LAUNCHES.items() if v != before[k]}
+
+
+def _device_events(prof):
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages() if e.device_type == cuda]
+
+
+def device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Device time per call of ``kernel``'s CUDA launches (its sweep and, for
+    a backward, its reduction), from a torch.profiler trace of ``n`` calls
+    after 3 warm-ups: the kernel alone, without the wrapper's host work."""
+    pattern = re.compile(rf"(?<![A-Za-z_]){kernel}_(kernel|reduce)(?![a-z0-9_])")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in _device_events(prof) if pattern.search(e.key)]
+    count = sum(e.count for e in hits)
+    check(count >= n, f"profiler: {count} launches of {kernel} seen in {n} calls")
+    return sum(e.device_time_total for e in hits) / n / 1e3
+
+
+def step_profile(step, x, n: int = 5) -> dict:
+    """Device time per training step, over ``n`` steps after 2 warm-ups:
+    all kernels together, the integrand kernels by name, and the number of
+    kernel launches."""
+    for _ in range(2):
+        step(x)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(x)
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    out = {"device_busy_ms": sum(e.device_time_total for e in events) / n / 1e3,
+           "device_launches": sum(e.count for e in events) / n}
+    for kernel in ik.LAUNCHES:
+        pattern = re.compile(rf"(?<![A-Za-z_]){kernel}_(kernel|reduce)(?![a-z0-9_])")
+        out[f"{kernel}_ms"] = sum(
+            e.device_time_total for e in events if pattern.search(e.key)) / n / 1e3
+    return out
+
+
 def integrand_inputs(gen: torch.Generator, widths: list, rows: int, dev) -> tuple:
     """Integrand weights at ``widths`` and an embedding for ``rows`` rows."""
     layers = [torch_linear_init(gen, a, b, dev) for a, b in zip(widths[:-1], widths[1:])]
@@ -178,37 +270,37 @@ def integrand_inputs(gen: torch.Generator, widths: list, rows: int, dev) -> tupl
     return ws, bs, h
 
 
-def kernel_flops(R: int, K: int) -> int:
-    """Useful float32 operations of one forward sweep: the first layer's h
-    part once per row, its x part (rank 1) and every later layer once per
-    (row, node)."""
-    per_pair = 2 * (WIDTHS[1] + sum(a * b for a, b in zip(WIDTHS[1:-1], WIDTHS[2:])))
-    return R * K * per_pair + R * 2 * (WIDTHS[0] - 1) * WIDTHS[1]
+def kernel_flops(widths: list, R: int, K: int) -> int:
+    """Useful float32 operations of one forward sweep of an integrand of
+    ``widths``: the first layer's h part once per row, its x part (rank 1)
+    and every later layer once per (row, node)."""
+    per_pair = 2 * (widths[1] + sum(a * b for a, b in zip(widths[1:-1], widths[2:])))
+    return R * K * per_pair + R * 2 * (widths[0] - 1) * widths[1]
 
 
-def kernel_bytes(R: int, K: int) -> int:
+def kernel_bytes(widths: list, R: int, K: int) -> int:
     """x, h and the weights read once, z written once, float32."""
-    weights = sum(a * b + b for a, b in zip(WIDTHS[:-1], WIDTHS[1:]))
-    return 4 * (R * WIDTHS[0] + R + weights + 2 * K)
+    weights = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    return 4 * (R * widths[0] + R + weights + 2 * K)
 
 
-def bwd_kernel_flops(R: int, K: int) -> int:
+def bwd_kernel_flops(widths: list, R: int, K: int) -> int:
     """Useful float32 operations of one backward sweep. Per (row, node): the
     forward again; for each hidden layer after the first, its dW product
     and the dz product into the layer below (2 x 2 x din x dout); the output
     layer's dW row and rank-1 dz (4 x its width); in layer 1 the x column
     of dW1, x's node path and the node sum of dz1 (5 x H1). Per row: the
     first layer's h part, dW1's h part and dh (3 x 2 x e x H1)."""
-    e, H1, dl = WIDTHS[0] - 1, WIDTHS[1], WIDTHS[-2]
-    hidden = sum(a * b for a, b in zip(WIDTHS[1:-2], WIDTHS[2:-1]))
-    per_pair = kernel_flops(1, 1) - 2 * e * H1 + 4 * hidden + 4 * dl + 5 * H1
+    e, H1, dl = widths[0] - 1, widths[1], widths[-2]
+    hidden = sum(a * b for a, b in zip(widths[1:-2], widths[2:-1]))
+    per_pair = kernel_flops(widths, 1, 1) - 2 * e * H1 + 4 * hidden + 4 * dl + 5 * H1
     return R * K * per_pair + R * 3 * 2 * e * H1
 
 
-def bwd_kernel_bytes(R: int, K: int) -> int:
+def bwd_kernel_bytes(widths: list, R: int, K: int) -> int:
     """x, h, g and the weights read once; dx, dh, S and dW written once."""
-    weights = sum(a * b + b for a, b in zip(WIDTHS[:-1], WIDTHS[1:]))
-    return 4 * (2 * R * (WIDTHS[0] + 1) + 2 * weights + 2 * K)
+    weights = sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    return 4 * (2 * R * (widths[0] + 1) + 2 * weights + 2 * K)
 
 
 def bound(flops: int, nbytes: int, name: str) -> dict:
@@ -218,49 +310,105 @@ def bound(flops: int, nbytes: int, name: str) -> dict:
             "bound_flop": flops, "bound_bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def bwd_through_autograd(ws, bs, x, h, nodes, ccw, g, slope):
+def bwd_through_autograd(ws, bs, x, h, nodes, ccw, g, slope, pack2=None):
     """dws, dbs, dx, dh of ``sum(g * fused_cc_integral(...))``: the forward
     kernel, then the backward kernel through the autograd Function."""
     leaves = [t.detach().requires_grad_() for t in (*ws, *bs, x, h)]
     n = len(ws)
     z = ik.fused_cc_integral(leaves[:n], leaves[n : 2 * n], leaves[-2], leaves[-1], nodes, ccw,
-                             neg_slope=slope)
+                             neg_slope=slope, pack2=pack2)
     grads = torch.autograd.grad(z, leaves, g)
     return list(grads[:n]), list(grads[n : 2 * n]), grads[-2], grads[-1]
 
 
-def hold(got, plain, want, scale: float, what: str) -> dict:
+def hold(got, plain, want, scale: float, what: str, plain_want=None, enforce=True) -> dict:
     """One backward output of the kernel against float64 ``want``: its max
     error within max(scale * max|want|, BWD_PLAIN_FACTOR * the float32
-    plain version's max error)."""
+    plain version's max error against ``plain_want``, by default ``want``)."""
     check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
     err = float((got.double() - want).abs().max())
-    plain_err = float((plain.double() - want).abs().max())
+    ref = want if plain_want is None else plain_want
+    plain_err = float((plain.double() - ref).abs().max())
     limit = max(scale * float(want.abs().max()), BWD_PLAIN_FACTOR * plain_err, 1e-30)
     out = {"max_abs_err": err, "plain_abs_err": plain_err, "tol_used": err / limit}
-    check(err <= limit, f"{what}: error {out} past {limit}")
+    check(err <= limit or not enforce, f"{what}: error {out} past {limit}")
     return out
 
 
-def compare_bwd(got, plain, want, what: str) -> dict:
-    """Errors of (dws, dbs, dx, dh[, S]) against the float64 plain version,
-    beside the float32 plain version's."""
+def compare_bwd(got, plain, want, what: str, plain_want=None, enforce=True) -> dict:
+    """Errors of (dws, dbs, dx, dh[, S]) against a float64 reference, beside
+    the float32 plain version's (against ``plain_want``, by default the
+    same reference)."""
+    pw = plain_want if plain_want is not None else want
     errs = {}
-    for kind, scale, g, p, w in (("dW", BWD_PARAM_SCALE, got[0], plain[0], want[0]),
-                                 ("db", BWD_PARAM_SCALE, got[1], plain[1], want[1])):
-        for l, (a, b, c) in enumerate(zip(g, p, w)):
-            errs[f"{kind}{l}"] = hold(a, b, c, scale, f"{what} {kind}{l}")
-    for name, a, b, c in zip(("dx", "dh", "S"), got[2:], plain[2:], want[2:]):
-        errs[name] = hold(a, b, c, BWD_ROW_SCALE, f"{what} {name}")
+    for kind, scale, i in (("dW", BWD_PARAM_SCALE, 0), ("db", BWD_PARAM_SCALE, 1)):
+        for l, (a, b, c, d) in enumerate(zip(got[i], plain[i], want[i], pw[i])):
+            errs[f"{kind}{l}"] = hold(a, b, c, scale, f"{what} {kind}{l}", d, enforce)
+    for name, a, b, c, d in zip(("dx", "dh", "S"), got[2:], plain[2:], want[2:], pw[2:]):
+        errs[name] = hold(a, b, c, BWD_ROW_SCALE, f"{what} {name}", d, enforce)
     return errs
 
 
-def bwd_plain64(ws, bs, x, h, nodes, ccw, g, slope):
-    """The plain backward in float64 on the same (float32) inputs."""
+def bwd_plain64(ws, bs, x, h, nodes, ccw, g, slope, pos=None):
+    """The plain backward in float64 on the same (float32) inputs; with
+    ``pos`` (kernel_branches), each hidden LeakyReLU on the side of 0 given
+    there, not on its float64 pre-activation's."""
     d = [t.double() for t in (*ws, *bs, x, h, nodes, ccw, g)]
     n = len(ws)
-    return ik.fused_cc_integral_bwd_plain(d[:n], d[n : 2 * n], *d[2 * n :], slope)
+    if pos is None:
+        return ik.fused_cc_integral_bwd_plain(d[:n], d[n : 2 * n], *d[2 * n :], slope)
+    nodes64, ccw64, g64 = d[2 * n + 2 :]
+    with torch.enable_grad():
+        leaves = [t.requires_grad_() for t in d[: 2 * n + 2]]
+        lws, lbs, lx, lh = leaves[:n], leaves[n : 2 * n], leaves[-2], leaves[-1]
+        xs = lx.reshape(-1)[:, None] * (nodes64.reshape(-1) + 1.0) * 0.5  # [R, K]
+        z = (lh @ lws[0][:, 1:].T + lbs[0])[:, None, :] + xs[..., None] * lws[0][:, 0]
+        for side, w, b in zip(pos, lws[1:], lbs[1:]):
+            z = torch.where(side, z, slope * z) @ w.T + b
+        S = ((torch.nn.functional.elu(z[..., 0]) + 1.0) * ccw64.reshape(-1)).sum(-1)
+        out = (S * lx.reshape(-1) * 0.5).reshape(lx.shape)
+        grads = torch.autograd.grad(out, leaves, g64)
+    return (list(grads[:n]), list(grads[n : 2 * n]), grads[-2], grads[-1],
+            S.detach().reshape(lx.shape))
+
+
+def kernel_branches(ws, bs, x, h, nodes, slope) -> tuple:
+    """The side of 0 of every hidden pre-activation, ``[R, K, width]`` per
+    hidden layer (True: > 0), as integrand_bwd_p2.cu's float32 forward puts
+    it: layer 1's h part an in-order FMA chain plus the bias, its node term
+    one FMA, every later layer an in-order FMA chain plus the bias; each FMA
+    taken in float64 and rounded once to float32. Also the count of items
+    on the other side than the float64 pre-activation's, and of the rows
+    that hold one."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c.double()).float()
+
+    R, e = h.shape
+    ph = torch.zeros(R, ws[0].shape[0], device=h.device)
+    for k in range(e):
+        ph = fma(h[:, k, None], ws[0][:, 1 + k], ph)
+    ph = ph + bs[0]
+    xw = x.reshape(-1)[:, None] * ws[0][:, 0]
+    z = fma(((nodes.reshape(-1) + 1.0) * 0.5)[None, :, None], xw[:, None, :], ph[:, None, :])
+    pos = [z > 0]
+    for w, b in zip(ws[1:-1], bs[1:-1]):
+        a = torch.where(pos[-1], z, slope * z)
+        acc = torch.zeros(*a.shape[:2], w.shape[0], device=a.device)
+        for k in range(w.shape[1]):
+            acc = fma(a[..., k, None], w[:, k], acc)
+        z = acc + b
+        pos.append(z > 0)
+    w64, b64 = [w.double() for w in ws], [b.double() for b in bs]
+    xs = x.double().reshape(-1)[:, None] * (nodes.double().reshape(-1) + 1.0) * 0.5
+    z = (h.double() @ w64[0][:, 1:].T + b64[0])[:, None, :] + xs[..., None] * w64[0][:, 0]
+    pos64 = [z > 0]
+    for w, b in zip(w64[1:-1], b64[1:-1]):
+        z = torch.where(pos64[-1], z, slope * z) @ w.T + b
+        pos64.append(z > 0)
+    flipped = [p != q for p, q in zip(pos, pos64)]
+    rows = torch.stack([f.flatten(1).any(1) for f in flipped]).any(0)
+    return pos, sum(int(f.sum()) for f in flipped), int(rows.sum())
 
 
 def phase_kernel(gen, rows, dev, nodes, ccw):
@@ -395,8 +543,8 @@ def phase_slice(rows, floor_bpp):
         flow.compute_ll(rows)
         torch.cuda.synchronize()
         launches = dict(ik.LAUNCHES)
-        check(launches == {"integrand_fwd": MNIST["nb_flow"], "integrand_bwd": 0},
-              f"slice: launches in one compute_ll {launches}, want {MNIST['nb_flow']} forward")
+        want = {**NONE_LAUNCHED, "integrand_fwd": MNIST["nb_flow"]}
+        check(launches == want, f"slice: launches in one compute_ll {launches}, want {want}")
         bpp_k, ll_k, z_k = flow.compute_bpp(rows)
         bpp_p, ll_p, z_p = plain.compute_bpp(rows)
         torch.cuda.synchronize()
@@ -445,8 +593,8 @@ def phase_train(flow, plain, batches):
     launches = dict(ik.LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     n = MNIST["nb_flow"]
-    check(launches == {"integrand_fwd": n, "integrand_bwd": n},
-          f"train: launches in one step {launches}, want {n} of each kernel")
+    want = {**NONE_LAUNCHED, "integrand_fwd": n, "integrand_bwd": n}
+    check(launches == want, f"train: launches in one step {launches}, want {want}")
     first_p = step_p(x0)
     step_err = compare(first_k, first_p, SLICE_TOL, "train step loss")
     losses = [float(first_k)] + [float(step_k(x)) for x in batches[1:TRAIN_STEPS]]
@@ -457,6 +605,191 @@ def phase_train(flow, plain, batches):
            grad_gap_integrand=integrand_gap, grad_gap_tol=TRAIN_GRAD_GAP,
            losses_kernel_route=losses, peak_mem_bytes_kernel_step=peak_bytes)
     return step_k, step_p, launches, peak_bytes
+
+
+def calib_block(gen, dev) -> tuple:
+    """One calibration block's integral inputs: a 500-row batch of the
+    known-entropy data (its 6 dimensions folded into 3,000 rows), integrand
+    weights at the calibration widths and h, from seeds."""
+    sample, _, _ = train_calibration.make_ground_truth(CALIB["nb_in"], 1000)
+    x = torch.as_tensor(sample(np.random.RandomState(1), CALIB_BATCH).reshape(-1), device=dev)
+    ws, bs, h = integrand_inputs(gen, CALIB_WIDTHS, x.numel(), dev)
+    return ws, bs, x, h
+
+
+def p2_cases(gen, dev, calib, g=None) -> dict:
+    """The pack-2 kernels' cases: the calibration block, 101 padded nodes,
+    an even K, x = 0, x < 0, a ragged row count, ReLU, the 64-wide limit."""
+    ws, bs, x, h = calib
+    gg = g if g is not None else torch.zeros_like(x)
+    cal = (ws, bs, *cc_tensors(CALIB["nb_steps"], dev))
+    ws64, bs64, h64 = integrand_inputs(gen, [64, 64, 64, 1], 2000, dev)
+    cases = {
+        "calibration_block": (cal, x, h, gg, 0.01),
+        "padded_101_nodes": ((ws, bs, *padded_cc_quadrature(50, 100, dev)), x, h, gg, 0.01),
+        "even_50_nodes": ((ws, bs, *cc_tensors(49, dev)), x, h, gg, 0.01),
+        "x_zero": (cal, torch.zeros(1000, device=dev), h[:1000], gg[:1000], 0.01),
+        "x_negative": (cal, -x[:1000].abs() - 0.1, h[:1000], gg[:1000], 0.01),
+        "ragged_77_rows": (cal, x[:77], h[:77], gg[:77], 0.01),
+        "relu_neg_slope_0": (cal, x, h, gg, 0.0),
+        "widths_64_64_64_1": ((ws64, bs64, *cal[2:]), x[:2000], h64, gg[:2000], 0.01),
+    }
+    return cases
+
+
+def phase_kernel_p2(gen, dev, calib):
+    """integrand_fwd_p2 against its plain version at the pack-2 cases, then
+    what it must refuse or leave to the unpacked pair."""
+    cases = p2_cases(gen, dev, calib)
+    ws, bs, x_main, h_main = calib
+    nodes, ccw = cc_tensors(CALIB["nb_steps"], dev)
+    errs = {}
+    with torch.inference_mode():
+        for case, ((cws, cbs, cn, cw), x, h, _, slope) in cases.items():
+            before = dict(ik.LAUNCHES)
+            got = ik.fused_cc_integral(cws, cbs, x, h, cn, cw, neg_slope=slope, pack2=True)
+            want = ik.fused_cc_integral_plain(cws, cbs, x, h, cn, cw, neg_slope=slope)
+            torch.cuda.synchronize()
+            check(launched_since(before) == {"integrand_fwd_p2": 1},
+                  f"kernel_p2 {case}: launched {launched_since(before)}")
+            errs[case] = compare(got, want, KERNEL_TOL, f"kernel_p2 {case}")
+            if case == "x_zero":
+                check(bool((got == 0).all()), "kernel_p2: x=0 must give z=0")
+            if case == "x_negative":
+                check(bool((got < 0).all()), "kernel_p2: x<0 must give z<0")
+        first = ik.fused_cc_integral(ws, bs, x_main, h_main, nodes, ccw, pack2=True)
+        again = ik.fused_cc_integral(ws, bs, x_main, h_main, nodes, ccw, pack2=True)
+        check(bool(torch.equal(again, first)), "kernel_p2: two runs must agree bit for bit")
+        # pack2=True on a 65-wide layer raises before any launch
+        before = dict(ik.LAUNCHES)
+        ws65, bs65, h65 = integrand_inputs(gen, [31, 65, 1], 64, dev)
+        try:
+            ik.fused_cc_integral(ws65, bs65, x_main[:64], h65, nodes, ccw, pack2=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("kernel_p2: pack2=True on a 65-wide layer must raise")
+        check(ik.LAUNCHES == before, "kernel_p2: a refused call must launch nothing")
+        # a shape JAX sends to pack-4 stays on the unpacked pair under auto
+        ws32, bs32, h32 = integrand_inputs(gen, [31, 32, 32, 1], 1000, dev)
+        z32 = ik.fused_cc_integral(ws32, bs32, x_main[:1000], h32, nodes, ccw)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_fwd": 1},
+              f"kernel_p2: a 32-wide integrand under auto launched {launched_since(before)}")
+        compare(z32, ik.fused_cc_integral_plain(ws32, bs32, x_main[:1000], h32, nodes, ccw),
+                KERNEL_TOL, "kernel_p2 32-wide on the unpacked pair")
+    report("kernel_p2", rows=x_main.numel(), nodes=nodes.numel(), widths=CALIB_WIDTHS,
+           tol=KERNEL_TOL, cases=errs, refused=["pack2_hidden_width_65"],
+           unpacked_under_auto=["widths_31_32_32_1"])
+    return errs
+
+
+def phase_bwd_p2(gen, dev, calib):
+    """integrand_bwd_p2, through its wrapper and through the autograd
+    Function, against the float64 plain version taken on the kernel's sides
+    of every LeakyReLU (see the note on LeakyReLU kinks) at the pack-2
+    cases; two runs bit-identical."""
+    ws, bs, x_main, h_main = calib
+    g_main = torch.randn(x_main.numel(), generator=gen).to(dev)
+    cases = p2_cases(gen, dev, calib, g_main)
+    errs, auto_errs, kinks = {}, {}, {}
+    for case, ((cws, cbs, cn, cw), x, h, g, slope) in cases.items():
+        args = (cws, cbs, x, h, cn, cw, g, slope)
+        pos, items, rows = kernel_branches(cws, cbs, x, h, cn, slope)
+        want = bwd_plain64(*args, pos=pos)
+        want64 = bwd_plain64(*args)
+        plain = ik.fused_cc_integral_bwd_plain(*args)
+        before = dict(ik.LAUNCHES)
+        got = ik.fused_cc_integral_bwd(*args, pack2=True)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_bwd_p2": 1},
+              f"bwd_p2 {case}: launched {launched_since(before)}")
+        errs[case] = worst(compare_bwd(got, plain, want, f"bwd_p2 {case}", want64))
+        kinks[case] = {"items_on_other_side": items, "rows_holding_one": rows,
+                       "against_float64_sides": worst(compare_bwd(
+                           got, plain, want64, f"bwd_p2 {case}", enforce=False))}
+        before = dict(ik.LAUNCHES)
+        auto = bwd_through_autograd(*args, pack2=True)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_fwd_p2": 1, "integrand_bwd_p2": 1},
+              f"bwd_p2 {case} via autograd: launched {launched_since(before)}")
+        auto_errs[case] = worst(compare_bwd(auto, plain[:4], want[:4],
+                                            f"bwd_p2 {case} via autograd", want64[:4]))
+        if case == "x_zero":
+            check(all(bool((d == 0).all()) for d in got[0]), "bwd_p2: x=0 must give dW=0")
+        del want, want64, plain, got, auto, pos
+    nodes, ccw = cc_tensors(CALIB["nb_steps"], dev)
+    args = (ws, bs, x_main, h_main, nodes, ccw, g_main)
+    first = ik.fused_cc_integral_bwd(*args, pack2=True)
+    again = ik.fused_cc_integral_bwd(*args, pack2=True)
+    check(all(torch.equal(a, b) for a, b in zip(first[0] + first[1] + list(first[2:]),
+                                                 again[0] + again[1] + list(again[2:]))),
+          "bwd_p2: two runs must agree bit for bit")
+    report("bwd_p2", rows=x_main.numel(), nodes=nodes.numel(), widths=CALIB_WIDTHS,
+           reference="plain version in float64 on the kernel's sides of each LeakyReLU",
+           tol={"row_scale": BWD_ROW_SCALE, "param_scale": BWD_PARAM_SCALE,
+                "plain_factor": BWD_PLAIN_FACTOR},
+           cases=errs, cases_via_autograd=auto_errs, kinks=kinks)
+    return g_main, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}
+
+
+def phase_calibration(dev):
+    """The main path of the pack-2 pair: the full-width calibration flow's
+    gradients against the Leibniz route, the launches of one training step,
+    then the port's driver for a short gate on full data."""
+    t0 = time.perf_counter()
+    sample, _, _ = train_calibration.make_ground_truth(CALIB["nb_in"], 1000)
+    x0 = torch.as_tensor(sample(np.random.RandomState(2), CALIB_BATCH), device=dev)
+    flow = UMNNMAFFlow(**CALIB, backend="auto", seed=0)
+    plain = UMNNMAFFlow(**CALIB, backend="torch", seed=0)
+    loss_k = -flow.compute_ll(x0)[0].mean()
+    loss_k.backward()
+    loss_p = -plain.compute_ll(x0)[0].mean()
+    loss_p.backward()
+    torch.cuda.synchronize()
+    loss_err = compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, "calibration loss")
+    gaps = {}
+    for (pname, a), b in zip(flow.named_parameters(), plain.parameters()):
+        check(a.grad is not None and bool(torch.isfinite(a.grad).all()),
+              f"calibration: grad of {pname}")
+        gaps[pname] = float((a.grad - b.grad).abs().max() / (b.grad.abs().max() + 1e-30))
+    gap_name = max(gaps, key=gaps.get)
+    check(gaps[gap_name] <= TRAIN_GRAD_GAP,
+          f"calibration: gradient of {gap_name} differs between routes by {gaps[gap_name]}")
+
+    step_k, step_p = trainer(flow), trainer(plain)
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    step_k(x0)
+    torch.cuda.synchronize()
+    launches = dict(ik.LAUNCHES)
+    n = CALIB["nb_flow"]
+    want = {**NONE_LAUNCHED, "integrand_fwd_p2": n, "integrand_bwd_p2": n}
+    check(launches == want, f"calibration: launches in one step {launches}, want {want}")
+
+    folder = _build.BUILD_DIR.parent / "chip_smoke_calibration"
+    shutil.rmtree(folder, ignore_errors=True)
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_calibration.main(["-nb_epoch", str(CALIB_EPOCHS), "-folder", str(folder)])
+    gate_s = time.perf_counter() - t
+    lines = out.getvalue().splitlines()
+    result = json.loads(lines[-1])
+    check(rc == 0 and result["pass"] is True,
+          f"calibration: the {CALIB_EPOCHS}-epoch gate failed: {result}")
+    stamps = {}
+    for line in (folder / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        stamps.setdefault(rec["step"], rec["ts"])
+    ts = [stamps[e] for e in sorted(stamps)]
+    report("calibration", batch=CALIB_BATCH, widths=CALIB_WIDTHS, launches_per_step=launches,
+           loss=loss_err, grad_gap_max=gaps[gap_name], grad_gap_param=gap_name,
+           grad_gap_tol=TRAIN_GRAD_GAP, gate_epochs=CALIB_EPOCHS, gate_result=result,
+           epoch_seconds_after_first=[b - a for a, b in zip(ts, ts[1:])],
+           epoch_lines=[l for l in lines if l.startswith("epoch")],
+           gate_seconds=gate_s, phase_seconds=time.perf_counter() - t0)
+    return step_k, step_p, x0, launches
 
 
 def main() -> None:
@@ -475,8 +808,9 @@ def main() -> None:
     t = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
+    ptxas = _build.ptxas_report()
     report("build", seconds=time.perf_counter() - t, nvcc=_build.find_nvcc(),
-           library=str(lib_path.relative_to(_build.BUILD_DIR.parents[1])))
+           library=str(lib_path.relative_to(_build.BUILD_DIR.parents[1])), ptxas=ptxas)
 
     gen = torch.Generator().manual_seed(0)
     data, floor_bpp = synthetic_mnist_ar1(seed=0, n=(0, 0, BATCH))
@@ -490,51 +824,111 @@ def main() -> None:
     g_main, bwd_errs = phase_bwd(gen, dev, nodes, ccw, block)
     flow, plain = phase_slice(rows, floor_bpp)
     step_k, step_p, launches, peak_bytes = phase_train(flow, plain, batches)
+    calib = calib_block(gen, dev)
+    fwd_p2_errs = phase_kernel_p2(gen, dev, calib)
+    g_calib, bwd_p2_errs = phase_bwd_p2(gen, dev, calib)
+    calib_k, calib_p, calib_x, calib_launches = phase_calibration(dev)
 
     # --- timing -----------------------------------------------------------
+    # ``*_ms`` from CUDA events around whole calls (the wrapper's host work
+    # included), ``*_device_ms`` from the profiler (the kernel alone).
     ws, bs, x_main, h_main = block
     R = x_main.numel()
     with torch.inference_mode():
-        fwd_ms = median_ms(lambda: ik.fused_cc_integral(ws, bs, x_main, h_main, nodes, ccw))
+        fwd = lambda: ik.fused_cc_integral(ws, bs, x_main, h_main, nodes, ccw)  # noqa: E731
+        fwd_ms = median_ms(fwd)
+        fwd_device_ms = device_ms(fwd, "integrand_fwd", n=10)
         fwd_plain_ms = median_ms(lambda: ik.fused_cc_integral_plain(ws, bs, x_main, h_main, nodes, ccw))
         bpp_ms = median_ms(lambda: flow.compute_bpp(rows))
         bpp_plain_ms = median_ms(lambda: plain.compute_bpp(rows))
     bwd_args = (ws, bs, x_main, h_main, nodes, ccw, g_main)
-    bwd_ms = median_ms(lambda: ik.fused_cc_integral_bwd(*bwd_args))
+    bwd = lambda: ik.fused_cc_integral_bwd(*bwd_args)  # noqa: E731
+    bwd_ms = median_ms(bwd)
+    bwd_device_ms = device_ms(bwd, "integrand_bwd", n=5)
     bwd_plain_ms = median_ms(lambda: ik.fused_cc_integral_bwd_plain(*bwd_args), n=5, warmup=1)
     train_ms = median_ms(lambda: step_k(batches[0]), n=5, warmup=1)
     train_plain_ms = median_ms(lambda: step_p(batches[0]), n=5, warmup=1)
-    fwd_bound = bound(kernel_flops(R, K), kernel_bytes(R, K), name)
-    bwd_bound = bound(bwd_kernel_flops(R, K), bwd_kernel_bytes(R, K), name)
-    report("timing", fwd_kernel_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms, fwd_bound=fwd_bound,
-           bwd_kernel_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, bwd_bound=bwd_bound,
-           compute_bpp_ms=bpp_ms, compute_bpp_plain_ms=bpp_plain_ms,
+    fwd_bound = bound(kernel_flops(WIDTHS, R, K), kernel_bytes(WIDTHS, R, K), name)
+    bwd_bound = bound(bwd_kernel_flops(WIDTHS, R, K), bwd_kernel_bytes(WIDTHS, R, K), name)
+
+    # the calibration block (R = 3,000, K = 51): the pack-2 pair, the
+    # unpacked pair on the same inputs, the plain versions
+    cws, cbs, cx, ch = calib
+    cn, cc = cc_tensors(CALIB["nb_steps"], dev)
+    CR, CK = cx.numel(), cn.numel()
+    calib_t = {}
+    with torch.inference_mode():
+        for label, pack2 in (("fwd_p2", True), ("fwd_unpacked", False)):
+            call = lambda: ik.fused_cc_integral(cws, cbs, cx, ch, cn, cc, pack2=pack2)  # noqa: E731
+            calib_t[f"{label}_ms"] = median_ms(call, n=20, warmup=5)
+            calib_t[f"{label}_device_ms"] = device_ms(
+                call, "integrand_fwd_p2" if pack2 else "integrand_fwd")
+        calib_t["fwd_plain_ms"] = median_ms(
+            lambda: ik.fused_cc_integral_plain(cws, cbs, cx, ch, cn, cc), n=20, warmup=5)
+    cargs = (cws, cbs, cx, ch, cn, cc, g_calib)
+    for label, pack2 in (("bwd_p2", True), ("bwd_unpacked", False)):
+        call = lambda: ik.fused_cc_integral_bwd(*cargs, pack2=pack2)  # noqa: E731
+        calib_t[f"{label}_ms"] = median_ms(call, n=20, warmup=5)
+        calib_t[f"{label}_device_ms"] = device_ms(
+            call, "integrand_bwd_p2" if pack2 else "integrand_bwd")
+    calib_t["bwd_plain_ms"] = median_ms(lambda: ik.fused_cc_integral_bwd_plain(*cargs), n=10)
+    calib_t["calib_train_step_ms"] = median_ms(lambda: calib_k(calib_x), n=10, warmup=2)
+    calib_t["calib_train_step_plain_ms"] = median_ms(lambda: calib_p(calib_x), n=10, warmup=2)
+    calib_profile = step_profile(calib_k, calib_x)
+    calib_profile["device_idle_share"] = (
+        1.0 - calib_profile["device_busy_ms"] / calib_t["calib_train_step_ms"])
+    fwd_p2_bound = bound(kernel_flops(CALIB_WIDTHS, CR, CK), kernel_bytes(CALIB_WIDTHS, CR, CK), name)
+    bwd_p2_bound = bound(bwd_kernel_flops(CALIB_WIDTHS, CR, CK),
+                         bwd_kernel_bytes(CALIB_WIDTHS, CR, CK), name)
+    report("timing", fwd_kernel_ms=fwd_ms, fwd_kernel_device_ms=fwd_device_ms,
+           fwd_plain_ms=fwd_plain_ms, fwd_bound=fwd_bound,
+           bwd_kernel_ms=bwd_ms, bwd_kernel_device_ms=bwd_device_ms, bwd_plain_ms=bwd_plain_ms,
+           bwd_bound=bwd_bound, compute_bpp_ms=bpp_ms, compute_bpp_plain_ms=bpp_plain_ms,
            train_step_ms=train_ms, train_step_plain_ms=train_plain_ms,
            train_step_peak_mem_bytes=peak_bytes,
            fwd_tflops=fwd_bound["bound_flop"] / fwd_ms / 1e9,
-           bwd_tflops=bwd_bound["bound_flop"] / bwd_ms / 1e9)
+           bwd_tflops=bwd_bound["bound_flop"] / bwd_ms / 1e9,
+           fwd_device_tflops=fwd_bound["bound_flop"] / fwd_device_ms / 1e9,
+           bwd_device_tflops=bwd_bound["bound_flop"] / bwd_device_ms / 1e9,
+           calib_rows=CR, calib_nodes=CK, calib=calib_t,
+           fwd_p2_bound=fwd_p2_bound, bwd_p2_bound=bwd_p2_bound,
+           fwd_p2_tflops=fwd_p2_bound["bound_flop"] / calib_t["fwd_p2_ms"] / 1e9,
+           bwd_p2_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_ms"] / 1e9,
+           fwd_p2_device_tflops=fwd_p2_bound["bound_flop"] / calib_t["fwd_p2_device_ms"] / 1e9,
+           bwd_p2_device_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_device_ms"] / 1e9,
+           calib_train_step_profile=calib_profile)
 
-    def entry(kernel, tpu_kernel, line, errs, ms, plain_ms, b):
+    # ``ms`` (and its alias ``kernel_ms``) is a CUDA-event median of whole
+    # wrapper calls, as in every earlier run; ``device_ms`` the kernel alone.
+    def entry(kernel, tpu_kernel, line, errs, ms, dev_ms, plain_ms, b, n_launched):
         return {
             "name": kernel, "route": "cuda", "source": f"umnn_tpu_torch/csrc/{kernel}.cu",
             "replaces": f"umnn_tpu/ops/integrand_kernel.py:{line}", "tpu_kernel": tpu_kernel,
-            "launches": launches[kernel],
+            "launches": n_launched,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "tol_used": max(e["tol_used"] for e in errs.values()),
-            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "kernel_ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+            "ptxas": ptxas[f"{kernel}_kernel"],
         }
 
     kernels = [
-        entry("integrand_fwd", "_fwd_kernel", 106, fwd_errs, fwd_ms, fwd_plain_ms, fwd_bound),
-        entry("integrand_bwd", "_bwd_kernel", 156, bwd_errs, bwd_ms, bwd_plain_ms, bwd_bound),
+        entry("integrand_fwd", "_fwd_kernel", 106, fwd_errs, fwd_ms, fwd_device_ms,
+              fwd_plain_ms, fwd_bound, launches["integrand_fwd"]),
+        entry("integrand_bwd", "_bwd_kernel", 156, bwd_errs, bwd_ms, bwd_device_ms,
+              bwd_plain_ms, bwd_bound, launches["integrand_bwd"]),
+        entry("integrand_fwd_p2", "_fwd_kernel_p2", 333, fwd_p2_errs,
+              calib_t["fwd_p2_ms"], calib_t["fwd_p2_device_ms"], calib_t["fwd_plain_ms"],
+              fwd_p2_bound, calib_launches["integrand_fwd_p2"]),
+        entry("integrand_bwd_p2", "_bwd_kernel_p2", 384, bwd_p2_errs,
+              calib_t["bwd_p2_ms"], calib_t["bwd_p2_device_ms"], calib_t["bwd_plain_ms"],
+              bwd_p2_bound, calib_launches["integrand_bwd_p2"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - T0:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
-
 
 if __name__ == "__main__":
     main()

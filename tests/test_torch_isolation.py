@@ -120,6 +120,17 @@ runpy.run_module("umnn_tpu_torch.examples.train_mnist", run_name="__main__")
     assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
 
 
+def test_calibration_driver_runs_without_jax_and_refuses_a_missing_card(tmp_path):
+    proc = _run(f"""
+import runpy
+sys.argv = ["train_calibration", "-nb_flow", "1", "-nb_epoch", "1", "-folder", {str(tmp_path)!r}]
+runpy.run_module("umnn_tpu_torch.examples.train_calibration", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+    assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
 def test_chip_smoke_exits_non_zero_without_cuda():
     proc = _run("import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')")
     assert proc.returncode != 0

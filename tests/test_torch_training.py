@@ -193,3 +193,22 @@ def test_driver_without_device_raises_when_cuda_is_absent(monkeypatch):
     argv = [a for a in TINY.split() if a not in ("-device", "cpu")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_mnist.main(argv)
+
+
+def test_driver_scores_test_bpp_every_epoch_and_finally_on_the_best_valid_epoch(capsys):
+    from umnn_tpu_torch.examples import train_mnist
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        # lr 0.02: the valid bpp rises in the last epoch, so the best epoch is not the last
+        result = train_mnist.main(TINY.replace("-nb_epoch 2", "-nb_epoch 4").split() + ["-lr", "0.02"])
+    finally:
+        torch.set_num_threads(threads)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    epochs = [l for l in lines if "epoch" in l]
+    assert len(epochs) == 4 and all(np.isfinite(l["test_bpp"]) for l in epochs)
+    best = min(epochs, key=lambda l: l["valid_bpp"])
+    assert result["test_bpp"] == best["test_bpp"]
+    if best is not epochs[-1]:
+        assert result["test_bpp"] != epochs[-1]["test_bpp"]

@@ -48,7 +48,7 @@
 // 50 x 50 product as 64 x 64, so 39% of those lanes are masked; one block
 // of 8 warps per SM is all the shared memory fits.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
@@ -57,13 +57,8 @@ constexpr int MT = 64;          // (row, node) pairs per pair tile
 constexpr int LDA = MT + 4;     // row stride of an activation buffer
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int MAX_LAYERS = 8;   // linear layers, hidden and output
 constexpr int MAX_WIDTH = 128;  // hidden width
-
-struct Dims {
-  int n_layers;
-  int w[MAX_LAYERS + 1];  // w[0] = 1 + e, ..., w[n_layers] = 1
-};
+constexpr int MAX_FIRST = 1 << 30;  // 1 + e: bounded by shared memory alone
 
 // Offsets into shared memory, in floats, each a multiple of 4 (16 bytes).
 struct Layout {
@@ -71,8 +66,6 @@ struct Layout {
   int hid_w[MAX_LAYERS], hid_b[MAX_LAYERS], ldw[MAX_LAYERS];
   int act[MAX_LAYERS];  // output of layer l, [w[l+1]][LDA], l = 0 .. n_layers-2
 };
-
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 __host__ __device__ inline Layout make_layout(const Dims& d, int K) {
   Layout L;
@@ -102,25 +95,6 @@ __host__ __device__ inline Layout make_layout(const Dims& d, int K) {
   }
   L.total = off;
   return L;
-}
-
-// Offsets of each layer's dW ([dout][din]) and db in the flat gradient;
-// returns its length.
-__host__ __device__ inline int param_offsets(const Dims& d, int* pw, int* pb) {
-  int off = 0;
-  for (int l = 0; l < d.n_layers; ++l) {
-    pw[l] = off;  off += d.w[l + 1] * d.w[l];
-    pb[l] = off;  off += d.w[l + 1];
-  }
-  return off;
-}
-
-__device__ __forceinline__ float leaky(float v, float neg_slope) {
-  return v > 0.f ? v : neg_slope * v;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 // Forward of one hidden layer: out[j][m] = leaky(sum_k in[k][m] w[k][j] + b[j]).
@@ -470,22 +444,7 @@ integrand_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
 // out[p] = sum over the grid's blocks, in block order, of partial[b][p].
 __global__ void integrand_bwd_reduce(const float* __restrict__ partial,
                                      float* __restrict__ out, int P, int blocks) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < P) {
-    float acc = 0.f;
-    for (int b = 0; b < blocks; ++b) acc += partial[(size_t)b * P + p];
-    out[p] = acc;
-  }
-}
-
-bool make_dims(const int* widths, int n_layers, Dims* d) {
-  if (n_layers < 2 || n_layers > MAX_LAYERS || widths[0] < 1 || widths[n_layers] != 1)
-    return false;
-  d->n_layers = n_layers;
-  for (int i = 0; i <= n_layers; ++i) d->w[i] = widths[i];
-  for (int i = 1; i < n_layers; ++i)
-    if (d->w[i] < 1 || d->w[i] > MAX_WIDTH) return false;
-  return true;
+  sum_partials(partial, out, P, blocks);
 }
 
 }  // namespace
@@ -496,7 +455,7 @@ extern "C" {
 // -1 if the widths are outside what the kernel takes.
 long long umnn_integrand_bwd_smem_bytes(int K, const int* widths, int n_layers) {
   Dims d;
-  if (K < 1 || !make_dims(widths, n_layers, &d)) return -1;
+  if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d)) return -1;
   return (long long)make_layout(d, K).total * sizeof(float);
 }
 
@@ -523,17 +482,10 @@ int umnn_integrand_bwd(const float* x, const float* h, const float* params,
                        int blocks, const int* widths, int n_layers, float neg_slope,
                        void* stream) {
   Dims d;
-  if (K < 1 || R < 1 || blocks < 1 || !make_dims(widths, n_layers, &d))
+  if (K < 1 || R < 1 || blocks < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d))
     return cudaErrorInvalidValue;
   const long long bytes = (long long)make_layout(d, K).total * sizeof(float);
-  int dev = 0, max_bytes = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > max_bytes) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(integrand_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
+  cudaError_t err = set_smem(integrand_bwd_kernel, bytes);
   if (err != cudaSuccess) return err;
   int pw[MAX_LAYERS], pb[MAX_LAYERS];
   const int P = param_offsets(d, pw, pb);

@@ -31,28 +31,21 @@
 // work: output widths are padded to 16 (50 -> 64), one block per SM fits the
 // shared memory, and wgmma over node-folded tiles is not used.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int TR = 32;          // rows per block
 constexpr int MT = 128;         // (row, node) pairs per tile
 constexpr int NTHREADS = 512;
-constexpr int MAX_LAYERS = 8;   // linear layers, hidden and output
 constexpr int MAX_WIDTH = 128;  // hidden width
-
-struct Dims {
-  int n_layers;
-  int w[MAX_LAYERS + 1];  // w[0] = 1 + e, ..., w[n_layers] = 1
-};
+constexpr int MAX_FIRST = 1 << 30;  // 1 + e: bounded by shared memory alone
 
 // Offsets into shared memory, in floats, each a multiple of 4 (16 bytes).
 struct Layout {
   int w1t, b1, wout, ph, xs, fw, s, ccw, buf0, buf1, total;
   int hid_w[MAX_LAYERS], hid_b[MAX_LAYERS], ldw[MAX_LAYERS];
 };
-
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 __host__ __device__ inline Layout make_layout(const Dims& d, int K) {
   Layout L;
@@ -76,10 +69,6 @@ __host__ __device__ inline Layout make_layout(const Dims& d, int K) {
   L.buf1 = off; off += maxh * MT;
   L.total = off;
   return L;
-}
-
-__device__ __forceinline__ float leaky(float v, float neg_slope) {
-  return v > 0.f ? v : neg_slope * v;
 }
 
 // out[j][m] = leaky(sum_k in[k][m] * w[k][j] + bias[j]) for j < dout, m < MT.
@@ -222,14 +211,8 @@ extern "C" {
 // Shared memory the kernel needs for these widths and node count, in bytes;
 // -1 if the widths are outside what the kernel takes.
 long long umnn_integrand_fwd_smem_bytes(int K, const int* widths, int n_layers) {
-  if (n_layers < 2 || n_layers > MAX_LAYERS || K < 1 || widths[0] < 1 ||
-      widths[n_layers] != 1)
-    return -1;
   Dims d;
-  d.n_layers = n_layers;
-  for (int i = 0; i <= n_layers; ++i) d.w[i] = widths[i];
-  for (int i = 1; i < n_layers; ++i)
-    if (d.w[i] < 1 || d.w[i] > MAX_WIDTH) return -1;
+  if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d)) return -1;
   return (long long)make_layout(d, K).total * sizeof(float);
 }
 
@@ -238,20 +221,12 @@ long long umnn_integrand_fwd_smem_bytes(int K, const int* widths, int n_layers) 
 int umnn_integrand_fwd(const float* x, const float* h, const float* params,
                        const float* nodes, const float* ccw, float* out, int R, int K,
                        const int* widths, int n_layers, float neg_slope, void* stream) {
-  const long long bytes = umnn_integrand_fwd_smem_bytes(K, widths, n_layers);
-  if (bytes < 0 || R < 1) return cudaErrorInvalidValue;
-  int dev = 0, max_bytes = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > max_bytes) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(integrand_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return err;
   Dims d;
-  d.n_layers = n_layers;
-  for (int i = 0; i <= n_layers; ++i) d.w[i] = widths[i];
+  if (K < 1 || R < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d))
+    return cudaErrorInvalidValue;
+  const long long bytes = (long long)make_layout(d, K).total * sizeof(float);
+  const cudaError_t err = set_smem(integrand_fwd_kernel, bytes);
+  if (err != cudaSuccess) return err;
   const int grid = (R + TR - 1) / TR;
   integrand_fwd_kernel<<<grid, NTHREADS, (size_t)bytes, (cudaStream_t)stream>>>(
       x, h, params, nodes, ccw, out, R, K, d, neg_slope);

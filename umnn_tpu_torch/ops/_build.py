@@ -1,12 +1,14 @@
 """Builds the port's CUDA sources with one ``nvcc`` call and binds them.
 
-The sources ``umnn_tpu_torch/csrc/*.cu`` have a plain C interface, so they
-compile in seconds without PyTorch's headers. The shared library goes into
+The sources ``umnn_tpu_torch/csrc/*.cu`` and the header they share,
+``common.cuh``, have a plain C interface, so they compile in seconds
+without PyTorch's headers. The shared library goes into
 ``build/umnn_tpu_torch/`` at the root of the checkout (listed in
 ``.gitignore``), under a name keyed on a hash of the sources and flags, so a
-stale library is never loaded. Nothing here runs at import: the build
-happens at the first call of :func:`load_library`, on a machine with
-``nvcc``.
+stale library is never loaded; ptxas's report of each kernel's registers,
+stack and spills goes beside it (:func:`ptxas_report`). Nothing here runs
+at import: the build happens at the first call of :func:`load_library`, on
+a machine with ``nvcc``.
 """
 
 from __future__ import annotations
@@ -14,17 +16,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "find_nvcc", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "find_nvcc", "load_library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "umnn_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -37,6 +40,11 @@ SIGNATURES = {
     "umnn_integrand_bwd": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_bwd_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
     "umnn_integrand_bwd_grid": ([_I], _I),
+    "umnn_integrand_fwd_p2": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_fwd_p2_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_bwd_p2": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_bwd_p2_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_bwd_p2_grid": ([_I, _I, _P, _I], _I),
     "umnn_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -89,7 +97,28 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)
+    return out
+
+
+def ptxas_report() -> dict:
+    """Per kernel of the built library: ``{"registers", "stack_bytes",
+    "spill_stores_bytes", "spill_loads_bytes"}``, from ptxas's output."""
+    text = library_path().with_suffix(".ptxas.txt").read_text()
+    out, name = {}, None
+    for line in text.splitlines():
+        # the mangled name ends in <length><name>E<parameters>
+        m = re.search(r"Compiling entry function '.*\d(integrand_[a-z0-9_]+?_(?:kernel|reduce))E", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            out[name].update(stack_bytes=int(m[1]), spill_stores_bytes=int(m[2]),
+                             spill_loads_bytes=int(m[3]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m[1])
     return out
 
 

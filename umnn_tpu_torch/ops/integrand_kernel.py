@@ -1,18 +1,32 @@
 """Fused Clenshaw-Curtis integral of the UMNN integrand MLP.
 
 PyTorch counterpart of `umnn_tpu/ops/integrand_kernel.py::fused_cc_integral`
-(`:1290-1357`) and its custom VJP (`:1083-1198,1287`). Per row r:
+(`:1290-1357`) and its custom VJP (`:1083-1287`). Per row r:
 
     z_r = x_r/2 * sum_n w_n * ELU+1(MLP([x_r * s_n, h_r])),  s_n = (t_n+1)/2
 
 with LeakyReLU(neg_slope) hidden layers. On CUDA tensors the wrapper runs
-an autograd Function whose forward launches ``csrc/integrand_fwd.cu`` (the
-Hopper port of `_fwd_kernel`, `:106-153`) and whose backward launches
-``csrc/integrand_bwd.cu`` (the port of `_bwd_kernel`, `:156-317`, with the
-host fold of `_fused_vjp_bwd`), or raises. The gradient is the exact
-derivative of the K-node approximation, x's node path included. On CPU
-tensors the wrapper runs :func:`fused_cc_integral_plain`, the same
-arithmetic in plain PyTorch, and autograd differentiates it.
+an autograd Function whose forward and backward launch one of two kernel
+pairs, or raise:
+
+- the unpacked pair, ``csrc/integrand_fwd.cu`` (the Hopper port of
+  `_fwd_kernel`, `:106-153`) and ``csrc/integrand_bwd.cu`` (the port of
+  `_bwd_kernel`, `:156-317`, with the host fold of `_fused_vjp_bwd`);
+- the pack-2 pair, ``csrc/integrand_fwd_p2.cu`` and
+  ``csrc/integrand_bwd_p2.cu`` (the ports of `_fwd_kernel_p2`, `:333-381`,
+  and `_bwd_kernel_p2`, `:384-506`, with the fold of `_fused_vjp_bwd_p2`),
+  for integrands whose input and hidden layers are at most 64 wide. They
+  take two quadrature nodes at a time.
+
+``pack2=None`` picks the pair as JAX's auto does: pack-2 where
+:func:`_pack2_applicable` holds and :func:`_pack4_applicable` does not. A
+pack-4 shape (every layer at most 32 wide) stays on the unpacked pair until
+the pack-4 kernels are ported. The gradient is the exact derivative of the
+K-node approximation, x's node path included. On CPU tensors the wrapper
+runs :func:`fused_cc_integral_plain`, the same arithmetic in plain PyTorch,
+and autograd differentiates it. Both pairs compute that one function (the
+pack-2 pair changes only how nodes are grouped and in what order sums are
+taken), so the plain versions here are the plain versions of both.
 
 Weights follow ``nn.Linear``: ``ws[l]`` is ``[dout, din]``, ``bs[l]`` is
 ``[dout]``; the first layer's input is ``[x, h]`` and the last has one output.
@@ -34,7 +48,47 @@ __all__ = [
 ]
 
 # Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"integrand_fwd": 0, "integrand_bwd": 0}
+LAUNCHES = {"integrand_fwd": 0, "integrand_bwd": 0, "integrand_fwd_p2": 0, "integrand_bwd_p2": 0}
+
+# Widest input or hidden layer of the pack-2 and pack-4 routes: half and a
+# quarter of the TPU's 128 lanes in the JAX package; the pack-2 kernels
+# here take it as their compile-time bound.
+PACK2_WIDTH = 64
+PACK4_WIDTH = 32
+
+
+def _packable(ws, width: int) -> bool:
+    return (
+        len(ws) >= 2
+        and ws[0].shape[1] <= width  # 1 + e
+        and all(w.shape[0] <= width for w in ws[:-1])  # hidden widths
+        and ws[-1].shape[0] == 1  # scalar integrand head
+    )
+
+
+def _pack2_applicable(ws) -> bool:
+    """Whether JAX's pack-2 route takes these ``nn.Linear`` weights
+    (`umnn_tpu/ops/integrand_kernel.py:893-900`)."""
+    return _packable(ws, PACK2_WIDTH)
+
+
+def _pack4_applicable(ws) -> bool:
+    """Whether JAX's pack-4 route takes them (`:746-753`); JAX's auto
+    gives it priority over pack-2."""
+    return _packable(ws, PACK4_WIDTH)
+
+
+def _route(ws, pack2: bool | None) -> str:
+    """The kernel pair's suffix: ``"_p2"`` for the pack-2 pair, ``""`` for
+    the unpacked one; raises for ``pack2=True`` on widths it cannot take."""
+    if pack2 is None:
+        return "_p2" if _pack2_applicable(ws) and not _pack4_applicable(ws) else ""
+    if pack2 and not _pack2_applicable(ws):
+        raise ValueError(
+            f"pack2=True needs 1 + e and every hidden width <= {PACK2_WIDTH} and one "
+            f"output; got layers {[tuple(w.shape) for w in ws]}"
+        )
+    return "_p2" if pack2 else ""
 
 
 def _leaky(v: torch.Tensor, neg_slope: float) -> torch.Tensor:
@@ -112,17 +166,21 @@ def fused_cc_integral(
     nodes: torch.Tensor,
     ccw: torch.Tensor,
     neg_slope: float = 0.01,
+    pack2: bool | None = None,
 ) -> torch.Tensor:
     """``∫_0^x f(t, h) dt`` for the UMNN integrand MLP; ``x [...]``,
     ``h [..., e]``, ``nodes``/``ccw`` the K CC nodes and weights.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernels,
+    the pack-2 pair where ``pack2`` says so (``None``: as JAX's auto).
     """
     tensors = [x, h, nodes, ccw, *ws, *bs]
-    if not _on_card("fused_cc_integral", ws, bs, tensors):
+    on_card = _on_card("fused_cc_integral", ws, bs, tensors)
+    route = _route(ws, pack2)
+    if not on_card:
         return fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, neg_slope)
-    widths = _check(ws, bs, x, h, nodes, ccw, tensors)
-    return _FusedIntegral.apply(x, h, nodes, ccw, float(neg_slope), widths, *ws, *bs)
+    widths = _check(ws, bs, x, h, nodes, ccw, tensors, route)
+    return _FusedIntegral.apply(x, h, nodes, ccw, float(neg_slope), widths, route, *ws, *bs)
 
 
 def fused_cc_integral_bwd(
@@ -134,16 +192,20 @@ def fused_cc_integral_bwd(
     ccw: torch.Tensor,
     g: torch.Tensor,
     neg_slope: float = 0.01,
+    pack2: bool | None = None,
 ):
     """The backward of :func:`fused_cc_integral` for cotangent ``g``:
     ``(dws, dbs, dx, dh, S)`` as :func:`fused_cc_integral_bwd_plain` gives
     them. CPU tensors run that plain version; CUDA tensors launch the
-    backward kernel (what the autograd Function's backward calls)."""
+    backward kernel of the pair ``pack2`` picks (what the autograd
+    Function's backward calls)."""
     tensors = [x, h, nodes, ccw, g, *ws, *bs]
-    if not _on_card("fused_cc_integral_bwd", ws, bs, tensors):
+    on_card = _on_card("fused_cc_integral_bwd", ws, bs, tensors)
+    route = _route(ws, pack2)
+    if not on_card:
         return fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g, neg_slope)
-    widths = _check(ws, bs, x, h, nodes, ccw, tensors, grad=True)
-    return _launch_bwd(ws, bs, x, h, nodes, ccw, g, float(neg_slope), widths)
+    widths = _check(ws, bs, x, h, nodes, ccw, tensors, route, grad=True)
+    return _launch_bwd(ws, bs, x, h, nodes, ccw, g, float(neg_slope), widths, route)
 
 
 def _on_card(name: str, ws, bs, tensors) -> bool:
@@ -167,30 +229,32 @@ def _on_card(name: str, ws, bs, tensors) -> bool:
 
 
 class _FusedIntegral(torch.autograd.Function):
-    """Forward: ``integrand_fwd``; backward: ``integrand_bwd``, which
-    recomputes the forward from the saved inputs (nothing of the node
-    sweep is saved) and returns dW in ``nn.Linear``'s layout."""
+    """Forward: ``integrand_fwd{route}``; backward: ``integrand_bwd{route}``
+    of the same pair, which recomputes the forward from the saved inputs
+    (nothing of the node sweep is saved) and returns dW in ``nn.Linear``'s
+    layout."""
 
     @staticmethod
-    def forward(ctx, x, h, nodes, ccw, neg_slope, widths, *wbs):
+    def forward(ctx, x, h, nodes, ccw, neg_slope, widths, route, *wbs):
         n = len(wbs) // 2
-        ctx.neg_slope, ctx.widths = neg_slope, widths
+        ctx.neg_slope, ctx.widths, ctx.route = neg_slope, widths, route
         ctx.save_for_backward(x, h, nodes, ccw, *wbs)
-        return _launch_fwd(wbs[:n], wbs[n:], x, h, nodes, ccw, neg_slope, widths)
+        return _launch_fwd(wbs[:n], wbs[n:], x, h, nodes, ccw, neg_slope, widths, route)
 
     @staticmethod
     def backward(ctx, g):
         x, h, nodes, ccw, *wbs = ctx.saved_tensors
         n = len(wbs) // 2
         dws, dbs, dx, dh, _ = _launch_bwd(
-            wbs[:n], wbs[n:], x, h, nodes, ccw, g.contiguous(), ctx.neg_slope, ctx.widths
+            wbs[:n], wbs[n:], x, h, nodes, ccw, g.contiguous(), ctx.neg_slope, ctx.widths,
+            ctx.route,
         )
-        return dx, dh, None, None, None, None, *dws, *dbs
+        return dx, dh, None, None, None, None, None, *dws, *dbs
 
 
-def _check(ws, bs, x, h, nodes, ccw, tensors, grad=None) -> tuple:
-    """What the kernels take (the backward's too where ``grad``, by default
-    where a gradient is wanted); returns the widths ``[1+e, ..., 1]``."""
+def _check(ws, bs, x, h, nodes, ccw, tensors, route, grad=None) -> tuple:
+    """What the pair's kernels take (the backward's too where ``grad``, by
+    default where a gradient is wanted); returns the widths ``[1+e, ..., 1]``."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"fused_cc_integral: the kernel takes float32, got {t.dtype}")
@@ -215,7 +279,7 @@ def _check(ws, bs, x, h, nodes, ccw, tensors, grad=None) -> tuple:
     if grad is None:
         grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     for kernel in ("fwd", "bwd") if grad else ("fwd",):
-        _smem_check(kernel, widths, K, x.device)
+        _smem_check(kernel + route, widths, K, x.device)
     return tuple(widths)
 
 
@@ -229,7 +293,7 @@ def _smem_check(kernel: str, widths, K: int, device):
     ptr = ctypes.cast(c_widths, ctypes.c_void_p)
     smem = getattr(lib, f"umnn_integrand_{kernel}_smem_bytes")(K, ptr, len(widths) - 1)
     if smem < 0:
-        # MAX_LAYERS and MAX_WIDTH of the .cu file
+        # MAX_LAYERS of csrc/common.cuh, MAX_WIDTH of the .cu file
         raise ValueError(
             f"widths {list(widths)}: beyond the layer count or hidden width that "
             f"csrc/integrand_{kernel}.cu takes"
@@ -256,30 +320,32 @@ def _raise_on(rc: int, lib, kernel: str) -> None:
         )
 
 
-def _launch_fwd(ws, bs, x, h, nodes, ccw, neg_slope, widths) -> torch.Tensor:
+def _launch_fwd(ws, bs, x, h, nodes, ccw, neg_slope, widths, route) -> torch.Tensor:
+    kernel = "fwd" + route
     K = nodes.numel()
-    lib, c_widths, ptr = _smem_check("fwd", widths, K, x.device)
+    lib, c_widths, ptr = _smem_check(kernel, widths, K, x.device)
     R = x.numel()
     out = torch.empty(R, dtype=torch.float32, device=x.device)
     if R == 0:
         return out.reshape(x.shape)
     params = _packed_params(ws, bs)
     with torch.cuda.device(x.device):
-        rc = lib.umnn_integrand_fwd(
+        rc = getattr(lib, f"umnn_integrand_{kernel}")(
             x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(),
             ccw.data_ptr(), out.data_ptr(), R, K, ptr, len(ws), float(neg_slope),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(rc, lib, "integrand_fwd")
-    LAUNCHES["integrand_fwd"] += 1
+    _raise_on(rc, lib, f"integrand_{kernel}")
+    LAUNCHES[f"integrand_{kernel}"] += 1
     return out.reshape(x.shape)
 
 
-def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths):
+def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
     """``(dws, dbs, dx, dh, S)`` as :func:`fused_cc_integral_bwd_plain`
     gives them; the kernel itself adds ``g S/2`` to dx."""
+    kernel = "bwd" + route
     K = nodes.numel()
-    lib, c_widths, ptr = _smem_check("bwd", widths, K, x.device)
+    lib, c_widths, ptr = _smem_check(kernel, widths, K, x.device)
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match x")
     R = x.numel()
@@ -292,21 +358,24 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths):
     dparams = torch.zeros(n_params, dtype=torch.float32, device=dev)
     if R > 0:
         with torch.cuda.device(dev):
-            blocks = lib.umnn_integrand_bwd_grid(R)
+            if route:  # the pack-2 grid: as many blocks as fit on the card at once
+                blocks = lib.umnn_integrand_bwd_p2_grid(R, K, ptr, len(ws))
+            else:
+                blocks = lib.umnn_integrand_bwd_grid(R)
             if blocks < 1:
-                _raise_on(-blocks or 1, lib, "integrand_bwd")
+                _raise_on(-blocks or 1, lib, f"integrand_{kernel}")
             # one slice of dW/db partial sums per block of the grid
             partial = torch.empty(blocks * n_params, dtype=torch.float32, device=dev)
             params = _packed_params(ws, bs)
-            rc = lib.umnn_integrand_bwd(
+            rc = getattr(lib, f"umnn_integrand_{kernel}")(
                 x.data_ptr(), h.data_ptr(), params.data_ptr(),
                 nodes.data_ptr(), ccw.data_ptr(), g.data_ptr(), dx.data_ptr(),
                 dh.data_ptr(), S.data_ptr(), partial.data_ptr(), dparams.data_ptr(),
                 R, K, blocks, ptr, len(ws), float(neg_slope),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
-        _raise_on(rc, lib, "integrand_bwd")
-        LAUNCHES["integrand_bwd"] += 1
+        _raise_on(rc, lib, f"integrand_{kernel}")
+        LAUNCHES[f"integrand_{kernel}"] += 1
     dws, dbs, off = [], [], 0
     for w, b in zip(ws, bs):
         dws.append(dparams[off : off + w.numel()].view(w.shape))
