@@ -28,7 +28,7 @@ scipy. Phases, each printing one flushed JSON line:
            block of the calibration flow (3,000 rows, 51 nodes, widths
            31-50-50-50-50-1) and edge cases (101 padded nodes, an even K,
            x = 0, x < 0, 77 rows, ReLU, the 64-wide limit); pack2=True on a
-           65-wide layer raises, a 32-wide integrand stays unpacked;
+           65-wide layer raises, a 32-wide integrand goes to the pack-4 pair;
 8. bwd_p2  the pack-2 backward kernel, through the autograd Function and
            through its wrapper, against the float64 plain version at the
            same cases; bit-identical reruns;
@@ -37,10 +37,28 @@ scipy. Phases, each printing one flushed JSON line:
            Leibniz route, 5 + 5 pack-2 launches per training step and none
            of the unpacked pair, then the port's calibration driver for 5
            epochs on full data, which must pass its 0.05-nat gate;
-10. timing CUDA-event medians of whole calls and profiler device times of
+10. kernel_p4  the pack-4 forward kernel against its plain version at the
+           toy flow's block (512 rows, 17 nodes, widths 11-32-32-1), a
+           4,096-row block and the flagship's block (192 rows, 21 nodes,
+           widths 9-32-32-1), and edge cases (K = 16, 18, 19, 101 padded
+           nodes, x = 0, x < 0, 77 rows, ReLU, the 32-wide limit, eight
+           layers); pack4=True on a 33-wide layer raises; auto takes the
+           pack-4, pack-2 and unpacked pairs where JAX's auto does;
+11. bwd_p4 the pack-4 backward kernel, through the autograd Function and
+           through its wrapper, against the float64 plain version at the
+           same cases, by bwd_p2's rule; bit-identical reruns;
+12. toy    the flagship flow (2 blocks, D = 6) and the toy flow at the
+           verify widths: gradients on the kernel route against the
+           Leibniz route, 2 + 2 and 1 + 1 pack-4 launches per training
+           step and no other integrand kernel; then the port's toy driver
+           for 6 epochs on 8gaussians and on conditionnal8gaussians, whose
+           test NLL must fall;
+13. timing CUDA-event medians of whole calls and profiler device times of
            every kernel, their plain versions, compute_bpp and a training
            step of each flow, beside the kernels' bounds; the unpacked pair
-           also at the calibration block, as the comparison route.
+           also at the calibration block, and the pack-2 and unpacked pairs
+           beside the pack-4 pair at the toy and 4,096-row blocks, as the
+           comparison routes.
 
 Then a ``kernels`` line, the nvidia-smi name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -64,7 +82,8 @@ import torch
 
 from umnn_tpu_torch import UMNNMAFFlow
 from umnn_tpu_torch.data.images import synthetic_mnist_ar1
-from umnn_tpu_torch.examples import train_calibration
+from umnn_tpu_torch.data.toy import inf_train_gen
+from umnn_tpu_torch.examples import train_calibration, train_toy
 from umnn_tpu_torch.nn.core import torch_linear_init
 from umnn_tpu_torch.ops import _build
 from umnn_tpu_torch.ops import integrand_kernel as ik
@@ -92,6 +111,23 @@ CALIB = dict(
 CALIB_BATCH = 500
 CALIB_WIDTHS = [1 + CALIB["embedding_s"], *CALIB["hidden_derivative"], 1]
 CALIB_EPOCHS = 5  # the short gate at full width on full data
+# The toy flow at the verify widths of examples/train_toy.py (the repo's
+# verify command without its -sample). Its integrand is at most 32 wide, so
+# it runs on the pack-4 kernel pair.
+TOY = dict(nb_flow=1, nb_in=2, hidden_derivative=(32, 32), hidden_embedding=(64, 64),
+           embedding_s=10, nb_steps=16)
+TOY_BATCH = 256
+TOY_WIDTHS = [1 + TOY["embedding_s"], *TOY["hidden_derivative"], 1]
+TOY_ARGV = "-nb_epoch 6 -nb_steps 16 -b_size 256 -hidden_embedding 64 64 -hidden_derivative 32 32"
+# Test NLL at epochs 0 and 5 of the JAX package's driver (examples/train_toy.py)
+# at TOY_ARGV, run on a CPU on the XLA route: a quality yardstick, not the port's.
+JAX_CPU_TOY_NLL = {"8gaussians": (5.3267, 4.3366), "conditionnal8gaussians": (5.2626, 4.0331)}
+# The __graft_entry__.py flagship (:20-31): D = 6, 2 blocks, batch 32 (192 rows).
+FLAGSHIP = dict(nb_flow=2, nb_in=6, hidden_derivative=(32, 32), hidden_embedding=(64, 64),
+                embedding_s=8, nb_steps=20)
+FLAGSHIP_BATCH = 32
+FLAGSHIP_WIDTHS = [1 + FLAGSHIP["embedding_s"], *FLAGSHIP["hidden_derivative"], 1]
+B2048 = 2048  # scripts/pack4_ab.py's larger toy batch (e = 8): 4,096 folded rows
 NONE_LAUNCHED = {k: 0 for k in ik.LAUNCHES}
 
 # Forward kernel against its plain version, both float32 with IEEE FMA on
@@ -225,19 +261,24 @@ def _device_events(prof):
 def device_ms(fn, kernel: str, n: int = 20) -> float:
     """Device time per call of ``kernel``'s CUDA launches (its sweep and, for
     a backward, its reduction), from a torch.profiler trace of ``n`` calls
-    after 3 warm-ups: the kernel alone, without the wrapper's host work."""
+    after 3 warm-ups: the kernel alone, without the wrapper's host work.
+    Every launch must be in the trace, n of the sweep (and n of the
+    reduction): a trace that lost one (seen once on the card, for one of
+    five MNIST backward sweeps) is taken again, at most three times."""
     pattern = re.compile(rf"(?<![A-Za-z_]){kernel}_(kernel|reduce)(?![a-z0-9_])")
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in _device_events(prof) if pattern.search(e.key)]
-    count = sum(e.count for e in hits)
-    check(count >= n, f"profiler: {count} launches of {kernel} seen in {n} calls")
-    return sum(e.device_time_total for e in hits) / n / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in _device_events(prof) if pattern.search(e.key)]
+        counts = {e.key: e.count for e in hits}
+        if any("_kernel" in k for k in counts) and all(c == n for c in counts.values()):
+            return sum(e.device_time_total for e in hits) / n / 1e3
+    raise AssertionError(f"profiler: launches of {kernel} seen in {n} calls: {counts}")
 
 
 def step_profile(step, x, n: int = 5) -> dict:
@@ -310,13 +351,13 @@ def bound(flops: int, nbytes: int, name: str) -> dict:
             "bound_flop": flops, "bound_bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
-def bwd_through_autograd(ws, bs, x, h, nodes, ccw, g, slope, pack2=None):
+def bwd_through_autograd(ws, bs, x, h, nodes, ccw, g, slope, pack2=None, pack4=None):
     """dws, dbs, dx, dh of ``sum(g * fused_cc_integral(...))``: the forward
     kernel, then the backward kernel through the autograd Function."""
     leaves = [t.detach().requires_grad_() for t in (*ws, *bs, x, h)]
     n = len(ws)
     z = ik.fused_cc_integral(leaves[:n], leaves[n : 2 * n], leaves[-2], leaves[-1], nodes, ccw,
-                             neg_slope=slope, pack2=pack2)
+                             neg_slope=slope, pack2=pack2, pack4=pack4)
     grads = torch.autograd.grad(z, leaves, g)
     return list(grads[:n]), list(grads[n : 2 * n]), grads[-2], grads[-1]
 
@@ -375,8 +416,8 @@ def bwd_plain64(ws, bs, x, h, nodes, ccw, g, slope, pos=None):
 
 def kernel_branches(ws, bs, x, h, nodes, slope) -> tuple:
     """The side of 0 of every hidden pre-activation, ``[R, K, width]`` per
-    hidden layer (True: > 0), as integrand_bwd_p2.cu's float32 forward puts
-    it: layer 1's h part an in-order FMA chain plus the bias, its node term
+    hidden layer (True: > 0), as the float32 forward of integrand_bwd_p2.cu
+    and integrand_bwd_p4.cu puts it: layer 1's h part an in-order FMA chain plus the bias, its node term
     one FMA, every later layer an in-order FMA chain plus the bias; each FMA
     taken in float64 and rounded once to float32. Also the count of items
     on the other side than the float64 pre-activation's, and of the rows
@@ -560,9 +601,40 @@ def phase_slice(rows, floor_bpp):
     return flow, plain
 
 
-def trainer(flow):
-    optimizer = make_optimizer(flow.parameters(), "adam", lr=1e-3, weight_decay=1e-2, grad_clip=1.0)
-    return make_train_step(lambda x: -flow.compute_ll(x)[0].mean(), optimizer)
+def trainer(flow, weight_decay=1e-2):
+    optimizer = make_optimizer(flow.parameters(), "adam", lr=1e-3, weight_decay=weight_decay,
+                               grad_clip=1.0)
+    return make_train_step(lambda *batch: -flow.compute_ll(*batch)[0].mean(), optimizer)
+
+
+def route_gaps(flow, plain, what: str, *batch) -> tuple:
+    """``-mean(compute_ll)`` and its gradients on the kernel route (``flow``)
+    against the Leibniz route (``plain``, the same seeded weights): the loss
+    within SLICE_TOL, every parameter gradient within TRAIN_GRAD_GAP of its
+    tensor's largest entry. Returns the loss's errors and the largest gap."""
+    loss_k = -flow.compute_ll(*batch)[0].mean()
+    loss_k.backward()
+    loss_p = -plain.compute_ll(*batch)[0].mean()
+    loss_p.backward()
+    torch.cuda.synchronize()
+    loss_err = compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, f"{what} loss")
+    gaps = {}
+    for (pname, a), b in zip(flow.named_parameters(), plain.parameters()):
+        check(a.grad is not None and bool(torch.isfinite(a.grad).all()), f"{what}: grad of {pname}")
+        gaps[pname] = float((a.grad - b.grad).abs().max() / (b.grad.abs().max() + 1e-30))
+    name = max(gaps, key=gaps.get)
+    check(gaps[name] <= TRAIN_GRAD_GAP,
+          f"{what}: gradient of {name} differs between routes by {gaps[name]}")
+    return loss_err, {"grad_gap_max": gaps[name], "grad_gap_param": name}
+
+
+def step_launches(step, *batch) -> dict:
+    """The integrand kernels one training step launches, counts set to 0 first."""
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    step(*batch)
+    torch.cuda.synchronize()
+    return dict(ik.LAUNCHES)
 
 
 def phase_train(flow, plain, batches):
@@ -670,17 +742,17 @@ def phase_kernel_p2(gen, dev, calib):
         else:
             raise AssertionError("kernel_p2: pack2=True on a 65-wide layer must raise")
         check(ik.LAUNCHES == before, "kernel_p2: a refused call must launch nothing")
-        # a shape JAX sends to pack-4 stays on the unpacked pair under auto
+        # a shape JAX sends to pack-4 goes to the pack-4 pair under auto
         ws32, bs32, h32 = integrand_inputs(gen, [31, 32, 32, 1], 1000, dev)
         z32 = ik.fused_cc_integral(ws32, bs32, x_main[:1000], h32, nodes, ccw)
         torch.cuda.synchronize()
-        check(launched_since(before) == {"integrand_fwd": 1},
+        check(launched_since(before) == {"integrand_fwd_p4": 1},
               f"kernel_p2: a 32-wide integrand under auto launched {launched_since(before)}")
         compare(z32, ik.fused_cc_integral_plain(ws32, bs32, x_main[:1000], h32, nodes, ccw),
-                KERNEL_TOL, "kernel_p2 32-wide on the unpacked pair")
+                KERNEL_TOL, "kernel_p2 32-wide on the pack-4 pair")
     report("kernel_p2", rows=x_main.numel(), nodes=nodes.numel(), widths=CALIB_WIDTHS,
            tol=KERNEL_TOL, cases=errs, refused=["pack2_hidden_width_65"],
-           unpacked_under_auto=["widths_31_32_32_1"])
+           pack4_under_auto=["widths_31_32_32_1"])
     return errs
 
 
@@ -742,27 +814,10 @@ def phase_calibration(dev):
     x0 = torch.as_tensor(sample(np.random.RandomState(2), CALIB_BATCH), device=dev)
     flow = UMNNMAFFlow(**CALIB, backend="auto", seed=0)
     plain = UMNNMAFFlow(**CALIB, backend="torch", seed=0)
-    loss_k = -flow.compute_ll(x0)[0].mean()
-    loss_k.backward()
-    loss_p = -plain.compute_ll(x0)[0].mean()
-    loss_p.backward()
-    torch.cuda.synchronize()
-    loss_err = compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, "calibration loss")
-    gaps = {}
-    for (pname, a), b in zip(flow.named_parameters(), plain.parameters()):
-        check(a.grad is not None and bool(torch.isfinite(a.grad).all()),
-              f"calibration: grad of {pname}")
-        gaps[pname] = float((a.grad - b.grad).abs().max() / (b.grad.abs().max() + 1e-30))
-    gap_name = max(gaps, key=gaps.get)
-    check(gaps[gap_name] <= TRAIN_GRAD_GAP,
-          f"calibration: gradient of {gap_name} differs between routes by {gaps[gap_name]}")
+    loss_err, gap = route_gaps(flow, plain, "calibration", x0)
 
     step_k, step_p = trainer(flow), trainer(plain)
-    for k in ik.LAUNCHES:
-        ik.LAUNCHES[k] = 0
-    step_k(x0)
-    torch.cuda.synchronize()
-    launches = dict(ik.LAUNCHES)
+    launches = step_launches(step_k, x0)
     n = CALIB["nb_flow"]
     want = {**NONE_LAUNCHED, "integrand_fwd_p2": n, "integrand_bwd_p2": n}
     check(launches == want, f"calibration: launches in one step {launches}, want {want}")
@@ -784,12 +839,253 @@ def phase_calibration(dev):
         stamps.setdefault(rec["step"], rec["ts"])
     ts = [stamps[e] for e in sorted(stamps)]
     report("calibration", batch=CALIB_BATCH, widths=CALIB_WIDTHS, launches_per_step=launches,
-           loss=loss_err, grad_gap_max=gaps[gap_name], grad_gap_param=gap_name,
-           grad_gap_tol=TRAIN_GRAD_GAP, gate_epochs=CALIB_EPOCHS, gate_result=result,
+           loss=loss_err, **gap, grad_gap_tol=TRAIN_GRAD_GAP, gate_epochs=CALIB_EPOCHS,
+           gate_result=result,
            epoch_seconds_after_first=[b - a for a, b in zip(ts, ts[1:])],
            epoch_lines=[l for l in lines if l.startswith("epoch")],
            gate_seconds=gate_s, phase_seconds=time.perf_counter() - t0)
     return step_k, step_p, x0, launches
+
+
+def toy_rows(n: int, seed: int, dev) -> torch.Tensor:
+    """``n`` 8gaussians points folded into ``2 n`` rows of x."""
+    return torch.as_tensor(inf_train_gen("8gaussians", np.random.RandomState(seed), n).reshape(-1),
+                           device=dev)
+
+
+def p4_cases(gen, dev) -> dict:
+    """The pack-4 kernels' cases: the toy flow's block, a 4,096-row block and
+    the flagship's block; K = 16, 18, 19 (the toy block's is 17), 101 padded
+    nodes, x = 0, x < 0, a ragged row count, ReLU, the 32-wide limit and
+    eight layers (MAX_LAYERS)."""
+    x_toy = toy_rows(TOY_BATCH, 1, dev)
+    x_big = toy_rows(B2048, 2, dev)
+    ws, bs, h = integrand_inputs(gen, TOY_WIDTHS, x_toy.numel(), dev)
+    ws9, bs9, h9 = integrand_inputs(gen, FLAGSHIP_WIDTHS, x_big.numel(), dev)
+    x_flag = torch.randn(FLAGSHIP_BATCH * FLAGSHIP["nb_in"], generator=gen).to(dev)
+    ws32, bs32, h32 = integrand_inputs(gen, [32, 32, 32, 32, 1], 1000, dev)
+    ws8, bs8, h8 = integrand_inputs(gen, [32] * 8 + [1], 1000, dev)
+    toy_q = cc_tensors(TOY["nb_steps"], dev)
+    toy = (ws, bs, *toy_q)
+    return {
+        "toy_block": (toy, x_toy, h, 0.01),
+        "b2048_block": ((ws9, bs9, *toy_q), x_big, h9, 0.01),
+        "flagship_block": ((ws9, bs9, *cc_tensors(FLAGSHIP["nb_steps"], dev)), x_flag,
+                           h9[: x_flag.numel()], 0.01),
+        "nodes_16": ((ws, bs, *cc_tensors(15, dev)), x_toy, h, 0.01),
+        "nodes_18": ((ws, bs, *cc_tensors(17, dev)), x_toy, h, 0.01),
+        "nodes_19": ((ws, bs, *cc_tensors(18, dev)), x_toy, h, 0.01),
+        "padded_101_nodes": ((ws, bs, *padded_cc_quadrature(50, 100, dev)), x_toy, h, 0.01),
+        "x_zero": (toy, torch.zeros_like(x_toy), h, 0.01),
+        "x_negative": (toy, -x_toy.abs() - 0.1, h, 0.01),
+        "ragged_77_rows": (toy, x_toy[:77], h[:77], 0.01),
+        "relu_neg_slope_0": (toy, x_toy, h, 0.0),
+        "widths_32_32_32_32_1": ((ws32, bs32, *toy_q), x_big[:1000], h32, 0.01),
+        "eight_layers_32_wide": ((ws8, bs8, *toy_q), x_big[:1000], h8, 0.01),
+    }
+
+
+def phase_kernel_p4(gen, dev):
+    """integrand_fwd_p4 against its plain version at the pack-4 cases, then
+    the routes: what pack4=True refuses, and where auto sends each pair."""
+    cases = p4_cases(gen, dev)
+    errs = {}
+    with torch.inference_mode():
+        for case, ((cws, cbs, cn, cw), x, h, slope) in cases.items():
+            before = dict(ik.LAUNCHES)
+            got = ik.fused_cc_integral(cws, cbs, x, h, cn, cw, neg_slope=slope, pack4=True)
+            want = ik.fused_cc_integral_plain(cws, cbs, x, h, cn, cw, neg_slope=slope)
+            torch.cuda.synchronize()
+            check(launched_since(before) == {"integrand_fwd_p4": 1},
+                  f"kernel_p4 {case}: launched {launched_since(before)}")
+            errs[case] = compare(got, want, KERNEL_TOL, f"kernel_p4 {case}")
+            if case == "x_zero":
+                check(bool((got == 0).all()), "kernel_p4: x=0 must give z=0")
+            if case == "x_negative":
+                check(bool((got < 0).all()), "kernel_p4: x<0 must give z<0")
+        (ws, bs, nodes, ccw), x, h, _ = cases["toy_block"]
+        first = ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, pack4=True)
+        again = ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, pack4=True)
+        check(bool(torch.equal(again, first)), "kernel_p4: two runs must agree bit for bit")
+        # pack4=True on a 33-wide layer raises before any launch
+        before = dict(ik.LAUNCHES)
+        ws33, bs33, h33 = integrand_inputs(gen, [31, 33, 1], 64, dev)
+        try:
+            ik.fused_cc_integral(ws33, bs33, x[:64], h33, nodes, ccw, pack4=True)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("kernel_p4: pack4=True on a 33-wide layer must raise")
+        check(ik.LAUNCHES == before, "kernel_p4: a refused call must launch nothing")
+        # auto picks the pair as JAX's auto does; pack4=False falls to pack-2
+        routes = {
+            "auto_31_32_32_1": ([31, 32, 32, 1], {}, "integrand_fwd_p4"),
+            "auto_calibration": (CALIB_WIDTHS, {}, "integrand_fwd_p2"),
+            "auto_mnist": (WIDTHS, {}, "integrand_fwd"),
+            "pack4_false_toy": (TOY_WIDTHS, {"pack4": False}, "integrand_fwd_p2"),
+        }
+        xr = cases["b2048_block"][1][:1000]
+        for case, (widths, kw, want) in routes.items():
+            rws, rbs, rh = integrand_inputs(gen, widths, xr.numel(), dev)
+            before = dict(ik.LAUNCHES)
+            z = ik.fused_cc_integral(rws, rbs, xr, rh, nodes, ccw, **kw)
+            torch.cuda.synchronize()
+            check(launched_since(before) == {want: 1},
+                  f"kernel_p4 {case}: launched {launched_since(before)}, want {want}")
+            compare(z, ik.fused_cc_integral_plain(rws, rbs, xr, rh, nodes, ccw), KERNEL_TOL,
+                    f"kernel_p4 {case}")
+    report("kernel_p4", rows=x.numel(), nodes=nodes.numel(), widths=TOY_WIDTHS, tol=KERNEL_TOL,
+           cases=errs, refused=["pack4_hidden_width_33"],
+           routes={k: v[2] for k, v in routes.items()})
+    return cases, errs
+
+
+def phase_bwd_p4(gen, dev, cases):
+    """integrand_bwd_p4, through its wrapper and through the autograd
+    Function, against the float64 plain version taken on the kernel's sides
+    of every LeakyReLU (as phase bwd_p2) at the pack-4 cases; two runs
+    bit-identical."""
+    g_all = torch.randn(2 * B2048, generator=gen).to(dev)
+    errs, auto_errs, kinks = {}, {}, {}
+    for case, ((cws, cbs, cn, cw), x, h, slope) in cases.items():
+        args = (cws, cbs, x, h, cn, cw, g_all[: x.numel()], slope)
+        pos, items, rows = kernel_branches(cws, cbs, x, h, cn, slope)
+        want = bwd_plain64(*args, pos=pos)
+        want64 = bwd_plain64(*args)
+        plain = ik.fused_cc_integral_bwd_plain(*args)
+        before = dict(ik.LAUNCHES)
+        got = ik.fused_cc_integral_bwd(*args, pack4=True)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_bwd_p4": 1},
+              f"bwd_p4 {case}: launched {launched_since(before)}")
+        errs[case] = worst(compare_bwd(got, plain, want, f"bwd_p4 {case}", want64))
+        kinks[case] = {"items_on_other_side": items, "rows_holding_one": rows,
+                       "against_float64_sides": worst(compare_bwd(
+                           got, plain, want64, f"bwd_p4 {case}", enforce=False))}
+        before = dict(ik.LAUNCHES)
+        auto = bwd_through_autograd(*args, pack4=True)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_fwd_p4": 1, "integrand_bwd_p4": 1},
+              f"bwd_p4 {case} via autograd: launched {launched_since(before)}")
+        auto_errs[case] = worst(compare_bwd(auto, plain[:4], want[:4],
+                                            f"bwd_p4 {case} via autograd", want64[:4]))
+        if case == "x_zero":
+            check(all(bool((d == 0).all()) for d in got[0]), "bwd_p4: x=0 must give dW=0")
+        del want, want64, plain, got, auto, pos
+    for case in ("toy_block", "b2048_block"):
+        (cws, cbs, cn, cw), x, h, _ = cases[case]
+        args = (cws, cbs, x, h, cn, cw, g_all[: x.numel()])
+        first = ik.fused_cc_integral_bwd(*args, pack4=True)
+        again = ik.fused_cc_integral_bwd(*args, pack4=True)
+        check(all(torch.equal(a, b) for a, b in zip(first[0] + first[1] + list(first[2:]),
+                                                     again[0] + again[1] + list(again[2:]))),
+              f"bwd_p4 {case}: two runs must agree bit for bit")
+    report("bwd_p4", rows=cases["toy_block"][1].numel(), nodes=TOY["nb_steps"] + 1,
+           widths=TOY_WIDTHS,
+           reference="plain version in float64 on the kernel's sides of each LeakyReLU",
+           tol={"row_scale": BWD_ROW_SCALE, "param_scale": BWD_PARAM_SCALE,
+                "plain_factor": BWD_PLAIN_FACTOR},
+           cases=errs, cases_via_autograd=auto_errs, kinks=kinks)
+    return g_all, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}
+
+
+def phase_toy(dev):
+    """The main path of the pack-4 pair: the flagship and toy flows'
+    gradients against the Leibniz route and the launches of one training
+    step, then the port's toy driver for 6 epochs, plain and conditional."""
+    t0 = time.perf_counter()
+    x_flag = torch.as_tensor(
+        np.random.RandomState(3).randn(FLAGSHIP_BATCH, FLAGSHIP["nb_in"]).astype(np.float32),
+        device=dev)
+    flag = UMNNMAFFlow(**FLAGSHIP, backend="auto", seed=0)
+    flag_loss, flag_gap = route_gaps(flag, UMNNMAFFlow(**FLAGSHIP, backend="torch", seed=0),
+                                     "toy flagship", x_flag)
+    flag_launches = step_launches(trainer(flag, 1e-5), x_flag)
+    want = {**NONE_LAUNCHED, "integrand_fwd_p4": 2, "integrand_bwd_p4": 2}
+    check(flag_launches == want, f"toy: flagship step launched {flag_launches}, want {want}")
+
+    x_toy = torch.as_tensor(inf_train_gen("8gaussians", np.random.RandomState(4), TOY_BATCH),
+                            device=dev)
+    flow = UMNNMAFFlow(**TOY, backend="auto", seed=0)
+    plain = UMNNMAFFlow(**TOY, backend="torch", seed=0)
+    toy_loss, toy_gap = route_gaps(flow, plain, "toy", x_toy)
+    step_k, step_p = trainer(flow, 1e-5), trainer(plain, 1e-5)
+    launches = step_launches(step_k, x_toy)
+    want = {**NONE_LAUNCHED, "integrand_fwd_p4": 1, "integrand_bwd_p4": 1}
+    check(launches == want, f"toy: step launched {launches}, want {want}")
+
+    runs = {}
+    for data, jax_nll in JAX_CPU_TOY_NLL.items():
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            history = train_toy.main(f"-data {data} {TOY_ARGV}".split())
+        seconds = time.perf_counter() - t
+        # 10 steps of 1 + 1 launches and one test batch of 1 per epoch
+        want = {**NONE_LAUNCHED, "integrand_fwd_p4": 66, "integrand_bwd_p4": 60}
+        check(ik.LAUNCHES == want, f"toy {data}: train_toy launched {ik.LAUNCHES}, want {want}")
+        nll = history["test_nll"]
+        check(all(np.isfinite(nll)) and nll[-1] < nll[0], f"toy {data}: test NLL {nll}")
+        runs[data] = {
+            "params": history["params"], "test_nll": nll, "train_nll": history["train_nll"],
+            "jax_cpu_xla_test_nll_epochs_0_5": jax_nll, "seconds": seconds,
+            "lines": out.getvalue().splitlines(),
+        }
+    report("toy", flagship_batch=FLAGSHIP_BATCH, flagship_widths=FLAGSHIP_WIDTHS,
+           flagship_loss=flag_loss, flagship=flag_gap, flagship_launches_per_step=flag_launches,
+           toy_batch=TOY_BATCH, toy_widths=TOY_WIDTHS, toy_loss=toy_loss, toy=toy_gap,
+           launches_per_step=launches, grad_gap_tol=TRAIN_GRAD_GAP, driver=runs,
+           phase_seconds=time.perf_counter() - t0)
+    return flow, step_k, step_p, x_toy, launches
+
+
+def time_pack4(cases, g_all, flow, step_k, step_p, x_toy, name: str) -> tuple:
+    """The pack-4 pair at the toy block (R = 512) and the 4,096-row block,
+    beside the pack-2 and unpacked pairs on the same inputs and the plain
+    versions; then the toy training step on the Leibniz route and on the
+    kernel route with its blocks on each pair in turn (the A/B of
+    scripts/pack4_ab.py), with the kernel route's profile."""
+    pairs = (("p4", {"pack4": True}, "_p4"), ("p2", {"pack2": True, "pack4": False}, "_p2"),
+             ("unpacked", {"pack2": False, "pack4": False}, ""))
+    out = {}
+    for block in ("toy_block", "b2048_block"):
+        (ws, bs, nodes, ccw), x, h, _ = cases[block]
+        g = g_all[: x.numel()]
+        widths, R, K = [h.shape[1] + 1] + [w.shape[0] for w in ws], x.numel(), nodes.numel()
+        t = {"rows": R, "nodes": K, "widths": widths}
+        with torch.inference_mode():
+            for label, kw, suffix in pairs:
+                call = lambda: ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, **kw)  # noqa: E731
+                t[f"fwd_{label}_ms"] = median_ms(call, n=20, warmup=5)
+                t[f"fwd_{label}_device_ms"] = device_ms(call, f"integrand_fwd{suffix}")
+            t["fwd_plain_ms"] = median_ms(
+                lambda: ik.fused_cc_integral_plain(ws, bs, x, h, nodes, ccw), n=20, warmup=5)
+        for label, kw, suffix in pairs:
+            call = lambda: ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, g, **kw)  # noqa: E731
+            t[f"bwd_{label}_ms"] = median_ms(call, n=20, warmup=5)
+            t[f"bwd_{label}_device_ms"] = device_ms(call, f"integrand_bwd{suffix}")
+        t["bwd_plain_ms"] = median_ms(
+            lambda: ik.fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g), n=10)
+        t["fwd_bound"] = bound(kernel_flops(widths, R, K), kernel_bytes(widths, R, K), name)
+        t["bwd_bound"] = bound(bwd_kernel_flops(widths, R, K), bwd_kernel_bytes(widths, R, K), name)
+        out[block] = t
+    steps = {"toy_train_step_plain_ms": median_ms(lambda: step_p(x_toy), n=10, warmup=2)}
+    for label, kw, suffix in pairs + pairs[::-1]:  # two rounds, the second in reverse
+        for block in flow.blocks:
+            block.pack2, block.pack4 = kw.get("pack2"), kw.get("pack4")
+        launched = step_launches(step_k, x_toy)
+        want = {**NONE_LAUNCHED, f"integrand_fwd{suffix}": 1, f"integrand_bwd{suffix}": 1}
+        check(launched == want, f"timing: toy step on {label} launched {launched}, want {want}")
+        steps.setdefault(f"toy_train_step_{label}_ms", []).append(
+            median_ms(lambda: step_k(x_toy), n=10, warmup=2))
+    for block in flow.blocks:
+        block.pack2 = block.pack4 = None  # auto: the pack-4 pair again
+    steps["toy_train_step_ms"] = median_ms(lambda: step_k(x_toy), n=10, warmup=2)
+    profile = step_profile(step_k, x_toy)
+    profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / steps["toy_train_step_ms"]
+    return out, steps, profile
 
 
 def main() -> None:
@@ -828,6 +1124,9 @@ def main() -> None:
     fwd_p2_errs = phase_kernel_p2(gen, dev, calib)
     g_calib, bwd_p2_errs = phase_bwd_p2(gen, dev, calib)
     calib_k, calib_p, calib_x, calib_launches = phase_calibration(dev)
+    p4c, fwd_p4_errs = phase_kernel_p4(gen, dev)
+    g_p4, bwd_p4_errs = phase_bwd_p4(gen, dev, p4c)
+    toy_flow, toy_k, toy_p, toy_x, toy_launches = phase_toy(dev)
 
     # --- timing -----------------------------------------------------------
     # ``*_ms`` from CUDA events around whole calls (the wrapper's host work
@@ -880,6 +1179,7 @@ def main() -> None:
     fwd_p2_bound = bound(kernel_flops(CALIB_WIDTHS, CR, CK), kernel_bytes(CALIB_WIDTHS, CR, CK), name)
     bwd_p2_bound = bound(bwd_kernel_flops(CALIB_WIDTHS, CR, CK),
                          bwd_kernel_bytes(CALIB_WIDTHS, CR, CK), name)
+    p4_t, toy_t, toy_profile = time_pack4(p4c, g_p4, toy_flow, toy_k, toy_p, toy_x, name)
     report("timing", fwd_kernel_ms=fwd_ms, fwd_kernel_device_ms=fwd_device_ms,
            fwd_plain_ms=fwd_plain_ms, fwd_bound=fwd_bound,
            bwd_kernel_ms=bwd_ms, bwd_kernel_device_ms=bwd_device_ms, bwd_plain_ms=bwd_plain_ms,
@@ -896,7 +1196,8 @@ def main() -> None:
            bwd_p2_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_ms"] / 1e9,
            fwd_p2_device_tflops=fwd_p2_bound["bound_flop"] / calib_t["fwd_p2_device_ms"] / 1e9,
            bwd_p2_device_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_device_ms"] / 1e9,
-           calib_train_step_profile=calib_profile)
+           calib_train_step_profile=calib_profile, pack4_ab=p4_t, toy=toy_t,
+           toy_train_step_profile=toy_profile)
 
     # ``ms`` (and its alias ``kernel_ms``) is a CUDA-event median of whole
     # wrapper calls, as in every earlier run; ``device_ms`` the kernel alone.
@@ -912,6 +1213,7 @@ def main() -> None:
             "ptxas": ptxas[f"{kernel}_kernel"],
         }
 
+    toy_block = p4_t["toy_block"]
     kernels = [
         entry("integrand_fwd", "_fwd_kernel", 106, fwd_errs, fwd_ms, fwd_device_ms,
               fwd_plain_ms, fwd_bound, launches["integrand_fwd"]),
@@ -923,6 +1225,12 @@ def main() -> None:
         entry("integrand_bwd_p2", "_bwd_kernel_p2", 384, bwd_p2_errs,
               calib_t["bwd_p2_ms"], calib_t["bwd_p2_device_ms"], calib_t["bwd_plain_ms"],
               bwd_p2_bound, calib_launches["integrand_bwd_p2"]),
+        entry("integrand_fwd_p4", "_fwd_kernel_pn", 522, fwd_p4_errs,
+              toy_block["fwd_p4_ms"], toy_block["fwd_p4_device_ms"], toy_block["fwd_plain_ms"],
+              toy_block["fwd_bound"], toy_launches["integrand_fwd_p4"]),
+        entry("integrand_bwd_p4", "_bwd_kernel_pn", 573, bwd_p4_errs,
+              toy_block["bwd_p4_ms"], toy_block["bwd_p4_device_ms"], toy_block["bwd_plain_ms"],
+              toy_block["bwd_bound"], toy_launches["integrand_bwd_p4"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - T0:.1f} s", flush=True)

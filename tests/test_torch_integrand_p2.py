@@ -1,6 +1,7 @@
 """The port's fused integral at pack-2 widths (input and hidden layers at most
 64 wide) against the JAX package's pack-2 Pallas kernels in interpret mode
-(`fused_cc_integral(..., pack2=True, pack4=False)`), and the route rules.
+(`fused_cc_integral(..., pack2=True, pack4=False)`), and the route rules
+(the pack-4 pair's own cases are in `tests/test_torch_integrand_p4.py`).
 
 On CPU tensors the port runs its plain version, which computes the pack-2
 kernels' function (``integrand_fwd_p2.cu`` and ``integrand_bwd_p2.cu`` group
@@ -159,10 +160,30 @@ def test_pack_rules_agree_with_jax(sizes):
     ([31, 50, 50, 50, 50, 1], "_p2"),  # the calibration integrand
     ([64, 64, 64, 1], "_p2"),
     ([31, 100, 50, 50, 50, 50, 1], ""),  # MNIST
-    ([5, 16, 16, 1], ""),  # pack-4 in JAX; the unpacked pair here until it is ported
+    ([5, 16, 16, 1], "_p4"),  # pack-4 wins over pack-2, as in JAX
 ], ids=["calibration", "limit_64", "mnist", "pack4_shape"])
 def test_auto_route_takes_pack2_where_jax_auto_does(sizes, route):
     assert ik._route(_both_layouts(sizes)[1], None) == route
+
+
+# the integrands of the repo's flows: the toy driver at the verify widths,
+# the __graft_entry__.py flagship, the calibration flow, MNIST
+FLOW_INTEGRANDS = {
+    "toy": [11, 32, 32, 1], "flagship": [9, 32, 32, 1],
+    "calibration": [31, 50, 50, 50, 50, 1], "mnist_flow": [31, 100, 50, 50, 50, 50, 1],
+}
+AUTO_SHAPES = {**{k: v for k, v in ROUTE_SHAPES.items() if len(v) > 2}, **FLOW_INTEGRANDS}
+
+
+@pytest.mark.parametrize("sizes", list(AUTO_SHAPES.values()), ids=list(AUTO_SHAPES))
+def test_auto_route_is_jax_auto_route(sizes):
+    """JAX's auto (`umnn_tpu/ops/integrand_kernel.py:1334-1343`): pack-4
+    where it applies, else pack-2 where it applies, else unpacked."""
+    from umnn_tpu.ops.integrand_kernel import _pack2_applicable, _pack4_applicable
+
+    jax_ws, port_ws = _both_layouts(sizes)
+    want = "_p4" if _pack4_applicable(jax_ws) else "_p2" if _pack2_applicable(jax_ws) else ""
+    assert ik._route(port_ws, None, None) == want
 
 
 @pytest.mark.parametrize("sizes", [[31, 65, 1], [65, 50, 1]], ids=["hidden_65", "input_65"])

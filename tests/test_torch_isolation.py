@@ -59,7 +59,7 @@ for name in names:
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "umnn_tpu")]
 print(len(names))
 """))
-    assert int(out.strip()) >= 12
+    assert int(out.strip()) >= 14
 
 
 def test_chip_smoke_imports_without_running():
@@ -129,6 +129,24 @@ runpy.run_module("umnn_tpu_torch.examples.train_calibration", run_name="__main__
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
     assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+def test_toy_driver_runs_without_jax_and_refuses_a_missing_card():
+    proc = _run("""
+import runpy
+sys.argv = ["train_toy", "-data", "conditionnal8gaussians", "-nb_epoch", "1"]
+runpy.run_module("umnn_tpu_torch.examples.train_toy", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+
+
+def test_source_scan_covers_the_toy_slice():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert {
+        "umnn_tpu_torch/data/toy.py", "umnn_tpu_torch/nn/made.py",
+        "umnn_tpu_torch/examples/train_toy.py",
+    } <= scanned
 
 
 def test_chip_smoke_exits_non_zero_without_cuda():

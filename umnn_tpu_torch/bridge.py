@@ -3,8 +3,10 @@
 The JAX package keeps a flow's parameters as a list over blocks of
 ``{"net": {"made": {"layers": [{"w", "b"}, ...]}, "integrand": {"layers":
 [...]}}, "scaling": [D]}`` with Linear weights ``[din, dout]``; the port
-keeps ``nn.Linear`` weights ``[dout, din]``. Leaves cross as numpy arrays,
-so this module needs neither package's random draws to match.
+keeps ``nn.Linear`` weights ``[dout, din]``. A conditional flow's
+ConditionalMADE has the same ``{"layers": [...]}`` tree, its first layer
+``nin + cond_in`` wide, so it crosses the same way. Leaves cross as numpy
+arrays, so this module needs neither package's random draws to match.
 """
 
 from __future__ import annotations

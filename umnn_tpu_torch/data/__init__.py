@@ -1,1 +1,1 @@
-"""Synthetic data made from a seed."""
+"""Data made from a seed: synthetic MNIST-geometry rows and the 2-D toy densities."""

@@ -1,9 +1,12 @@
 """UMNNMAFFlow: a stack of UMNN-MAF blocks with a feature reversal between
 blocks.
 
-PyTorch counterpart of `umnn_tpu/models/flow.py:26-125`, unconditional. The forward composes ``rev . net_k . rev . ... . rev . net_0``
-and a trailing reversal restores the original order; the reversal alternates
-the autoregressive direction between blocks.
+PyTorch counterpart of `umnn_tpu/models/flow.py:26-125`. The forward
+composes ``rev . net_k . rev . ... . rev . net_0`` and a trailing reversal
+restores the original order; the reversal alternates the autoregressive
+direction between blocks. With ``cond_in > 0`` every block is conditioned on
+a context (ConditionalMADE embeddings), which each method takes as
+``context=`` and hands unchanged to every block.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ class UMNNMAFFlow(nn.Module):
         backend: str = "auto",
         seed: int = 0,
         device: torch.device | str | None = None,
+        cond_in: int = 0,
     ):
         super().__init__()
         device = resolve_device(device)
@@ -48,7 +52,7 @@ class UMNNMAFFlow(nn.Module):
         self.blocks = nn.ModuleList(
             UMNNMAF(
                 nb_in, gen, embedding_s, hidden_embedding, hidden_derivative,
-                nb_steps, act_func, backend, device,
+                nb_steps, act_func, backend, device, cond_in,
             )
             for _ in range(nb_flow)
         )
@@ -57,39 +61,43 @@ class UMNNMAFFlow(nn.Module):
     def _rev(x: torch.Tensor) -> torch.Tensor:
         return torch.flip(x, dims=(-1,))
 
-    def forward(self, x: torch.Tensor, **quad) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad) -> torch.Tensor:
         for block in self.blocks:
-            x = self._rev(block(x, **quad))
+            x = self._rev(block(x, context, **quad))
         return self._rev(x)
 
-    def _log_jac_and_z(self, x: torch.Tensor, **quad):
+    def _log_jac_and_z(self, x: torch.Tensor, context: torch.Tensor | None, **quad):
         log_jac = torch.zeros_like(x)
         for block in self.blocks:
-            log_jac = log_jac + block.compute_log_jac(x)
-            x = self._rev(block(x, **quad))
+            log_jac = log_jac + block.compute_log_jac(x, context)
+            x = self._rev(block(x, context, **quad))
         return log_jac, self._rev(x)
 
-    def compute_log_jac(self, x: torch.Tensor, **quad) -> torch.Tensor:
+    def compute_log_jac(
+        self, x: torch.Tensor, context: torch.Tensor | None = None, **quad
+    ) -> torch.Tensor:
         """Per-dimension log-Jacobians summed over blocks, each in its block's
         own feature order (the sum over dimensions downstream ignores it)."""
-        return self._log_jac_and_z(x, **quad)[0]
+        return self._log_jac_and_z(x, context, **quad)[0]
 
-    def compute_ll(self, x: torch.Tensor, **quad):
+    def compute_ll(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad):
         """Exact log-likelihood under a standard-normal base.
 
         Each block embeds ``x`` once for its transform and again for its
         log-Jacobian, as the JAX flow does.
         """
-        log_jac, z = self._log_jac_and_z(x, **quad)
+        log_jac, z = self._log_jac_and_z(x, context, **quad)
         log_prob_gauss = -0.5 * torch.sum(math.log(2 * math.pi) + z**2, dim=-1)
         return torch.sum(log_jac, dim=-1) + log_prob_gauss, z
 
-    def compute_ll_bis(self, x: torch.Tensor, **quad):
+    def compute_ll_bis(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad):
         """Per-dimension decomposition of the log-likelihood."""
-        log_jac, z = self._log_jac_and_z(x, **quad)
+        log_jac, z = self._log_jac_and_z(x, context, **quad)
         return log_jac - 0.5 * (math.log(2 * math.pi) + z**2), z
 
-    def compute_bpp(self, x: torch.Tensor, alpha: float = 1e-6):
+    def compute_bpp(
+        self, x: torch.Tensor, alpha: float = 1e-6, context: torch.Tensor | None = None
+    ):
         """Bits per pixel for logit-dequantized images: ``(bpp, ll, z)``."""
-        ll, z = self.compute_ll(x)
+        ll, z = self.compute_ll(x, context)
         return bits_per_pixel(ll, x, alpha), ll, z

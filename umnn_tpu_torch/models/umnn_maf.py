@@ -1,18 +1,20 @@
 """UMNN-MAF: one autoregressive monotone flow block and its networks.
 
 PyTorch counterpart of `umnn_tpu/models/umnn_maf.py` (`:64-111,133-185,
-188-391`), unconditional. One block computes
+188-391`). One block computes
 
     z_d = exp(s_d) * ( ∫_0^{x_d} f_d(t, h_d(x_{<d})) dt + z0_d )
 
 where ``h = MADE(x)`` is the autoregressive embedding (its first D-block is
 the offset ``z0``), the integrands ``f_d`` share one MLP evaluated on folded
 rows, and ``s`` is a frozen per-dimension scaling. The exact log-Jacobian is
-``log f_d(x_d, h_d) + s_d``.
+``log f_d(x_d, h_d) + s_d``. With ``cond_in > 0`` the embedding is a
+ConditionalMADE of ``(x, context)``, and every method takes ``context=``.
 
 The integral's ``backend``: ``"kernel"`` (counterpart of JAX's ``"pallas"``)
 calls :func:`~umnn_tpu_torch.ops.integrand_kernel.fused_cc_integral`, which
-launches the CUDA kernel on the card and its plain version on the CPU;
+launches the CUDA kernels on the card (the pair that ``pack2`` and ``pack4``
+pick, ``None`` as JAX's auto) and their plain version on the CPU;
 ``"torch"`` (counterpart of ``"xla"``) is the plain node-megabatch
 quadrature with the Leibniz-rule backward; ``"auto"`` takes the kernel on
 CUDA and the plain path on CPU. Gradients reach every parameter on both
@@ -31,7 +33,7 @@ import torch
 from torch import nn
 
 from umnn_tpu_torch.nn.core import MLP
-from umnn_tpu_torch.nn.made import MADE
+from umnn_tpu_torch.nn.made import MADE, ConditionalMADE
 from umnn_tpu_torch.ops.integrand_kernel import fused_cc_integral
 from umnn_tpu_torch.ops.quadrature import cc_tensors, neural_integral
 
@@ -82,7 +84,8 @@ class IntegrandNetwork(nn.Module):
 
 
 class EmbeddingNetwork(nn.Module):
-    """A MADE embedder paired with the integrand networks (unconditional)."""
+    """A MADE embedder (a ConditionalMADE where ``cond_in > 0``) paired with
+    the integrand networks."""
 
     def __init__(
         self,
@@ -93,19 +96,35 @@ class EmbeddingNetwork(nn.Module):
         gen: torch.Generator,
         act_func: str = "ELU",
         device: torch.device | str = "cpu",
+        cond_in: int = 0,
     ):
         super().__init__()
-        self.made = MADE(in_d, hidden_embedding, in_d * out_made, gen, device)
+        self.cond_in = cond_in
+        if cond_in > 0:
+            self.made = ConditionalMADE(
+                in_d, cond_in, hidden_embedding, (in_d + cond_in) * out_made, gen, device
+            )
+        else:
+            self.made = MADE(in_d, hidden_embedding, in_d * out_made, gen, device)
         self.integrand = IntegrandNetwork(
             in_d, 1 + out_made, hidden_integrand, gen, 1, act_func, device
         )
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
+    def embed(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+        if self.cond_in > 0:
+            if context is None:
+                raise ValueError("conditional EmbeddingNetwork requires context")
+            return self.made(x, context)
         return self.made(x)
 
 
 class UMNNMAF(nn.Module):
-    """One autoregressive monotone flow block."""
+    """One autoregressive monotone flow block.
+
+    ``pack2`` and ``pack4`` (JAX's ``pallas_pack2`` and ``pallas_pack4``)
+    go to :func:`fused_cc_integral` on the kernel route: ``None`` picks the
+    kernel pair as JAX's auto does; a bool forces a pair on or off.
+    """
 
     def __init__(
         self,
@@ -118,6 +137,9 @@ class UMNNMAF(nn.Module):
         act_func: str = "ELU",
         backend: str = "auto",
         device: torch.device | str = "cpu",
+        cond_in: int = 0,
+        pack2: bool | None = None,
+        pack4: bool | None = None,
     ):
         super().__init__()
         if backend not in BACKENDS:
@@ -126,16 +148,17 @@ class UMNNMAF(nn.Module):
         self.nb_steps = nb_steps
         self.act_func = act_func
         self.backend = backend
+        self.pack2, self.pack4 = pack2, pack4
         # EmbeddingNetwork draws the MADE and then the integrand from ``gen``
         self.net = EmbeddingNetwork(
             input_size, hidden_embedding, hidden_derivative, embedding_s, gen,
-            act_func, device,
+            act_func, device, cond_in,
         )
         # frozen per-dimension scaling; a buffer, so no gradient reaches it
         self.register_buffer("scaling", torch.zeros(input_size, device=device))
 
-    def embed(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net.embed(x)
+    def embed(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+        return self.net.embed(x, context)
 
     def _use_kernel(self, x: torch.Tensor) -> bool:
         """Whether the integral goes to the kernel; it never falls back to
@@ -170,6 +193,8 @@ class UMNNMAF(nn.Module):
                 nodes,
                 weights,
                 neg_slope=0.01,
+                pack2=self.pack2,
+                pack4=self.pack4,
             )
         else:
             z = neural_integral(
@@ -177,29 +202,31 @@ class UMNNMAF(nn.Module):
             )
         return torch.exp(self.scaling) * (z + z0)
 
-    def forward(self, x: torch.Tensor, **quad) -> torch.Tensor:
-        return self.forward_with_embedding(x, self.embed(x), **quad)
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad) -> torch.Tensor:
+        return self.forward_with_embedding(x, self.embed(x, context), **quad)
 
     def _log_jac(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return torch.log(self.net.integrand(x, h) + 1e-10) + self.scaling
 
-    def compute_log_jac(self, x: torch.Tensor) -> torch.Tensor:
+    def compute_log_jac(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
         """Exact diagonal log-Jacobian: ``log f(x, h) + s``."""
-        return self._log_jac(x, self.embed(x))
+        return self._log_jac(x, self.embed(x, context))
 
-    def compute_log_jac_bis(self, x: torch.Tensor, **quad):
-        h = self.embed(x)
+    def compute_log_jac_bis(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad):
+        h = self.embed(x, context)
         return self.forward_with_embedding(x, h, **quad), self._log_jac(x, h)
 
-    def compute_ll(self, x: torch.Tensor, **quad):
-        z, log_jac = self.compute_log_jac_bis(x, **quad)
+    def compute_ll(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad):
+        z, log_jac = self.compute_log_jac_bis(x, context, **quad)
         z = torch.clamp(z, -10.0, 10.0)  # Gaussian-tail guard
         log_prob_gauss = -0.5 * torch.sum(math.log(2 * math.pi) + z**2, dim=-1)
         return log_prob_gauss + torch.sum(log_jac, dim=-1), z
 
-    def compute_bpp(self, x: torch.Tensor, alpha: float = 1e-6):
+    def compute_bpp(
+        self, x: torch.Tensor, alpha: float = 1e-6, context: torch.Tensor | None = None
+    ):
         """Bits per pixel for logit-dequantized images."""
-        ll, z = self.compute_ll(x)
+        ll, z = self.compute_ll(x, context)
         return bits_per_pixel(ll, x, alpha), ll, z
 
 

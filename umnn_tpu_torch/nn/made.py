@@ -1,8 +1,9 @@
-"""Masked autoregressive network (MADE), unconditional.
+"""Masked autoregressive networks: MADE and ConditionalMADE.
 
 PyTorch counterpart of `umnn_tpu/nn/made.py`: :func:`build_made_masks` is a
-copy of `:30-76` and :class:`MADE` applies the masks at use, ``w * m``, as
-`:121-128` does. Masks are buffers in ``nn.Linear``'s ``[dout, din]`` layout.
+copy of `:30-76`, :class:`MADE` applies the masks at use, ``w * m``, as
+`:121-128` does, and :class:`ConditionalMADE` is `:166-209`. Masks are
+buffers in ``nn.Linear``'s ``[dout, din]`` layout.
 
 Layout contract: for ``nout = k * nin``, output column ``j*nin + d`` is the
 j-th output feature of input dimension ``d``; the last mask is tiled k times.
@@ -19,7 +20,7 @@ from torch import nn
 
 from umnn_tpu_torch.nn.core import torch_linear_init
 
-__all__ = ["build_made_masks", "MADE"]
+__all__ = ["build_made_masks", "ConditionalMADE", "MADE"]
 
 
 def build_made_masks(
@@ -90,3 +91,33 @@ class MADE(nn.Module):
         for layer, m in zip(self.layers[:-1], masks[:-1]):
             x = F.relu(F.linear(x, layer.weight * m, layer.bias))
         return F.linear(x, self.layers[-1].weight * masks[-1], self.layers[-1].bias)
+
+
+class ConditionalMADE(MADE):
+    """MADE over ``concat(context, x)`` with the context's outputs stripped.
+
+    The underlying MADE sees ``nin + cond_in`` inputs under natural
+    ordering, so every output may depend on the whole context but dimension
+    ``d`` of ``x`` only on ``x[..., :d]``. ``nout`` is the underlying MADE's,
+    a multiple ``k * (nin + cond_in)``; each output block of that width keeps
+    its trailing ``nin`` columns, so the result is ``[..., k * nin]``.
+    """
+
+    def __init__(
+        self,
+        nin: int,
+        cond_in: int,
+        hidden_sizes: Sequence[int],
+        nout: int,
+        gen: torch.Generator,
+        device: torch.device | str = "cpu",
+    ):
+        super().__init__(nin + cond_in, hidden_sizes, nout, gen, device)
+        self.nin, self.cond_in = nin, cond_in
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+        out = super().forward(torch.cat([context, x], dim=-1))
+        nt = self.nin + self.cond_in
+        k = out.shape[-1] // nt
+        out = out.reshape(*out.shape[:-1], k, nt)[..., self.cond_in :]
+        return out.reshape(*x.shape[:-1], k * self.nin)

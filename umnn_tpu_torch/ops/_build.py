@@ -1,8 +1,9 @@
-"""Builds the port's CUDA sources with one ``nvcc`` call and binds them.
+"""Builds the port's CUDA sources with ``nvcc`` and binds them.
 
 The sources ``umnn_tpu_torch/csrc/*.cu`` and the header they share,
 ``common.cuh``, have a plain C interface, so they compile in seconds
-without PyTorch's headers. The shared library goes into
+without PyTorch's headers: one ``nvcc`` process per source, all started
+together, then one more that links the objects. The shared library goes into
 ``build/umnn_tpu_torch/`` at the root of the checkout (listed in
 ``.gitignore``), under a name keyed on a hash of the sources and flags, so a
 stale library is never loaded; ptxas's report of each kernel's registers,
@@ -27,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "umnn_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -45,6 +46,11 @@ SIGNATURES = {
     "umnn_integrand_bwd_p2": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_bwd_p2_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
     "umnn_integrand_bwd_p2_grid": ([_I, _I, _P, _I], _I),
+    "umnn_integrand_fwd_p4": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_fwd_p4_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_bwd_p4": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_bwd_p4_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_bwd_p4_grid": ([_I, _I, _P, _I], _I),
     "umnn_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -82,6 +88,18 @@ def library_path() -> Path:
     return BUILD_DIR / f"libumnn_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Runs the commands side by side; their stderr, or raises with the
+    first failure's."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    return errs
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library unless it is there."""
     out = library_path()
@@ -89,15 +107,20 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in _sources()]
+    tmp = out.with_name(f"{stem}.tmp.so")
+    try:
+        errs = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                         for src, o in zip(_sources(), objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".ptxas.txt").write_text("".join(errs))
     os.replace(tmp, out)
     return out
 

@@ -6,7 +6,7 @@ PyTorch counterpart of `umnn_tpu/ops/integrand_kernel.py::fused_cc_integral`
     z_r = x_r/2 * sum_n w_n * ELU+1(MLP([x_r * s_n, h_r])),  s_n = (t_n+1)/2
 
 with LeakyReLU(neg_slope) hidden layers. On CUDA tensors the wrapper runs
-an autograd Function whose forward and backward launch one of two kernel
+an autograd Function whose forward and backward launch one of three kernel
 pairs, or raise:
 
 - the unpacked pair, ``csrc/integrand_fwd.cu`` (the Hopper port of
@@ -16,17 +16,22 @@ pairs, or raise:
   ``csrc/integrand_bwd_p2.cu`` (the ports of `_fwd_kernel_p2`, `:333-381`,
   and `_bwd_kernel_p2`, `:384-506`, with the fold of `_fused_vjp_bwd_p2`),
   for integrands whose input and hidden layers are at most 64 wide. They
-  take two quadrature nodes at a time.
+  take two quadrature nodes at a time;
+- the pack-4 pair, ``csrc/integrand_fwd_p4.cu`` and
+  ``csrc/integrand_bwd_p4.cu`` (the ports of `_fwd_kernel_pn`, `:522-570`,
+  and `_bwd_kernel_pn`, `:573-700`, with the fold of `_fused_vjp_bwd_pn`),
+  for integrands at most 32 wide, four nodes at a time.
 
-``pack2=None`` picks the pair as JAX's auto does: pack-2 where
-:func:`_pack2_applicable` holds and :func:`_pack4_applicable` does not. A
-pack-4 shape (every layer at most 32 wide) stays on the unpacked pair until
-the pack-4 kernels are ported. The gradient is the exact derivative of the
-K-node approximation, x's node path included. On CPU tensors the wrapper
-runs :func:`fused_cc_integral_plain`, the same arithmetic in plain PyTorch,
-and autograd differentiates it. Both pairs compute that one function (the
-pack-2 pair changes only how nodes are grouped and in what order sums are
-taken), so the plain versions here are the plain versions of both.
+``pack4=None`` and ``pack2=None`` pick the pair as JAX's auto does
+(`:1334-1343`): pack-4 where :func:`_pack4_applicable` holds, else pack-2
+where :func:`_pack2_applicable` holds, else the unpacked pair; pack-4 wins
+over pack-2 whatever ``pack2`` says. The gradient is the exact derivative
+of the K-node approximation, x's node path included. On CPU tensors the
+wrapper runs :func:`fused_cc_integral_plain`, the same arithmetic in plain
+PyTorch, and autograd differentiates it. All three pairs compute that one
+function (the packed pairs change only how nodes are grouped and in what
+order sums are taken), so the plain versions here are the plain versions
+of all three.
 
 Weights follow ``nn.Linear``: ``ws[l]`` is ``[dout, din]``, ``bs[l]`` is
 ``[dout]``; the first layer's input is ``[x, h]`` and the last has one output.
@@ -48,11 +53,14 @@ __all__ = [
 ]
 
 # Launches of each kernel since its count was last set to 0.
-LAUNCHES = {"integrand_fwd": 0, "integrand_bwd": 0, "integrand_fwd_p2": 0, "integrand_bwd_p2": 0}
+LAUNCHES = {
+    "integrand_fwd": 0, "integrand_bwd": 0, "integrand_fwd_p2": 0, "integrand_bwd_p2": 0,
+    "integrand_fwd_p4": 0, "integrand_bwd_p4": 0,
+}
 
 # Widest input or hidden layer of the pack-2 and pack-4 routes: half and a
-# quarter of the TPU's 128 lanes in the JAX package; the pack-2 kernels
-# here take it as their compile-time bound.
+# quarter of the TPU's 128 lanes in the JAX package; the packed kernels
+# here take them as their compile-time bounds.
 PACK2_WIDTH = 64
 PACK4_WIDTH = 32
 
@@ -78,17 +86,24 @@ def _pack4_applicable(ws) -> bool:
     return _packable(ws, PACK4_WIDTH)
 
 
-def _route(ws, pack2: bool | None) -> str:
-    """The kernel pair's suffix: ``"_p2"`` for the pack-2 pair, ``""`` for
-    the unpacked one; raises for ``pack2=True`` on widths it cannot take."""
-    if pack2 is None:
-        return "_p2" if _pack2_applicable(ws) and not _pack4_applicable(ws) else ""
-    if pack2 and not _pack2_applicable(ws):
-        raise ValueError(
-            f"pack2=True needs 1 + e and every hidden width <= {PACK2_WIDTH} and one "
-            f"output; got layers {[tuple(w.shape) for w in ws]}"
-        )
-    return "_p2" if pack2 else ""
+def _route(ws, pack2: bool | None, pack4: bool | None = None) -> str:
+    """The kernel pair's suffix: ``"_p4"``, ``"_p2"`` or ``""`` (unpacked),
+    as JAX's auto picks it where an argument is ``None``; raises for
+    ``pack4=True`` or ``pack2=True`` on widths that pair cannot take."""
+    for packed, applicable, width, name in (
+        (pack4, _pack4_applicable, PACK4_WIDTH, "pack4"),
+        (pack2, _pack2_applicable, PACK2_WIDTH, "pack2"),
+    ):
+        if packed and not applicable(ws):
+            raise ValueError(
+                f"{name}=True needs 1 + e and every hidden width <= {width} and one "
+                f"output; got layers {[tuple(w.shape) for w in ws]}"
+            )
+    if pack4 if pack4 is not None else _pack4_applicable(ws):
+        return "_p4"
+    if pack2 if pack2 is not None else _pack2_applicable(ws):
+        return "_p2"
+    return ""
 
 
 def _leaky(v: torch.Tensor, neg_slope: float) -> torch.Tensor:
@@ -167,16 +182,17 @@ def fused_cc_integral(
     ccw: torch.Tensor,
     neg_slope: float = 0.01,
     pack2: bool | None = None,
+    pack4: bool | None = None,
 ) -> torch.Tensor:
     """``∫_0^x f(t, h) dt`` for the UMNN integrand MLP; ``x [...]``,
     ``h [..., e]``, ``nodes``/``ccw`` the K CC nodes and weights.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernels,
-    the pack-2 pair where ``pack2`` says so (``None``: as JAX's auto).
+    CPU tensors run the plain version; CUDA tensors launch the kernels of
+    the pair ``pack4`` and ``pack2`` pick (``None``: as JAX's auto).
     """
     tensors = [x, h, nodes, ccw, *ws, *bs]
     on_card = _on_card("fused_cc_integral", ws, bs, tensors)
-    route = _route(ws, pack2)
+    route = _route(ws, pack2, pack4)
     if not on_card:
         return fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, neg_slope)
     widths = _check(ws, bs, x, h, nodes, ccw, tensors, route)
@@ -193,15 +209,16 @@ def fused_cc_integral_bwd(
     g: torch.Tensor,
     neg_slope: float = 0.01,
     pack2: bool | None = None,
+    pack4: bool | None = None,
 ):
     """The backward of :func:`fused_cc_integral` for cotangent ``g``:
     ``(dws, dbs, dx, dh, S)`` as :func:`fused_cc_integral_bwd_plain` gives
     them. CPU tensors run that plain version; CUDA tensors launch the
-    backward kernel of the pair ``pack2`` picks (what the autograd
-    Function's backward calls)."""
+    backward kernel of the pair ``pack4`` and ``pack2`` pick (what the
+    autograd Function's backward calls)."""
     tensors = [x, h, nodes, ccw, g, *ws, *bs]
     on_card = _on_card("fused_cc_integral_bwd", ws, bs, tensors)
-    route = _route(ws, pack2)
+    route = _route(ws, pack2, pack4)
     if not on_card:
         return fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g, neg_slope)
     widths = _check(ws, bs, x, h, nodes, ccw, tensors, route, grad=True)
@@ -358,10 +375,10 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
     dparams = torch.zeros(n_params, dtype=torch.float32, device=dev)
     if R > 0:
         with torch.cuda.device(dev):
-            if route:  # the pack-2 grid: as many blocks as fit on the card at once
-                blocks = lib.umnn_integrand_bwd_p2_grid(R, K, ptr, len(ws))
-            else:
-                blocks = lib.umnn_integrand_bwd_grid(R)
+            # the unpacked grid: one block per SM; the packed grids: as many
+            # blocks as fit on the card at once, at most one per row tile
+            grid = getattr(lib, f"umnn_integrand_{kernel}_grid")
+            blocks = grid(R, K, ptr, len(ws)) if route else grid(R)
             if blocks < 1:
                 _raise_on(-blocks or 1, lib, f"integrand_{kernel}")
             # one slice of dW/db partial sums per block of the grid
