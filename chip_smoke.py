@@ -15,7 +15,12 @@ scipy. Phases, each printing one flushed JSON line:
            on the card, at one MNIST block's shape and at edge cases;
 4. bwd     the backward integrand kernel, through the autograd Function and
            through its wrapper, against its plain version, at the MNIST
-           block and edge cases; bit-identical reruns; refused widths;
+           block and edge cases (widths that divide none of its register
+           tiles, the widest sets it takes, ragged row and pair tiles at
+           K = 51 and 101; sets the forward kernel refuses through the
+           backward's launcher alone); bit-identical reruns; refused
+           widths; its launch shape (threads, shared bytes, registers,
+           resident blocks per SM);
 5. slice   the full-width 5-block MNIST UMNN-MAF flow (random weights from a
            seed) scores 100 synthetic MNIST-geometry rows with compute_bpp
            on the kernel path, held against the plain quadrature path; the
@@ -58,7 +63,8 @@ scipy. Phases, each printing one flushed JSON line:
            step of each flow, beside the kernels' bounds; the unpacked pair
            also at the calibration block, and the pack-2 and unpacked pairs
            beside the pack-4 pair at the toy and 4,096-row blocks, as the
-           comparison routes.
+           comparison routes; the unpacked backward's share of its bound
+           and launch shape.
 
 Then a ``kernels`` line, the nvidia-smi name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -507,6 +513,27 @@ def phase_kernel(gen, rows, dev, nodes, ccw):
     return (ws, bs, x_main, h_main), errs
 
 
+def bwd_launch_shape(widths: list, K: int) -> dict:
+    """integrand_bwd.cu's launch shape at these widths and node count, from
+    its own C helper: threads per block, shared bytes, resident blocks and
+    warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
+    per thread, and the first layer whose dW/db sums stay on chip."""
+    import ctypes
+
+    fn = _build.load_library().umnn_integrand_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    out = (ctypes.c_int * 5)()
+    rc = fn(K, ctypes.cast(c_widths, ctypes.c_void_p), len(widths) - 1,
+            ctypes.cast(out, ctypes.c_void_p))
+    check(rc == 0, f"umnn_integrand_bwd_occupancy {widths} K={K}: error {rc}")
+    threads, smem, per_sm, regs, sums_from = list(out)
+    return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": per_sm,
+            "warps_per_sm": per_sm * threads // 32, "registers": regs,
+            "dw_sums_on_chip_from_layer": sums_from}
+
+
 def phase_bwd(gen, dev, nodes, ccw, block):
     ws, bs, x_main, h_main = block
     R = x_main.numel()
@@ -516,6 +543,17 @@ def phase_bwd(gen, dev, nodes, ccw, block):
     x_other, g_other = x_main[:5000], g_main[:5000]
     ws1, bs1, h1 = integrand_inputs(gen, [31, 100, 1], x_other.numel(), dev)
     ws2, bs2, h2 = integrand_inputs(gen, [31, 128, 64, 1], x_other.numel(), dev)
+    # the register tiles' edges: widths that divide none of them, the widest
+    # set taken before (every dW/db sum on chip but the 128 x 128 layer's),
+    # a set with none on chip, and 1,003 rows (a ragged last row tile; the
+    # last pair tile of a row tile is ragged at K = 51 and at K = 101)
+    edge = {w: integrand_inputs(gen, list(w), x_other.numel(), dev) for w in (
+        (31, 37, 53, 1), (31, 100, 51, 51, 1), (31, 128, 128, 1), (31, 128, 37, 1),
+        (31, 128, 128, 76, 1))}
+    edge_cases = {
+        "widths_" + "_".join(map(str, w)): ((ews, ebs, nodes, ccw), x_other, eh, g_other, 0.01)
+        for w, (ews, ebs, eh) in edge.items()
+    }
     cases = {
         "mnist_block": (mnist, x_main, h_main, g_main, 0.01),
         "x_zero": (mnist, torch.zeros(1000, device=dev), h_main[:1000], g_main[:1000], 0.01),
@@ -525,17 +563,35 @@ def phase_bwd(gen, dev, nodes, ccw, block):
         "padded_101_nodes": ((ws, bs, *p101), x_main[:3000], h_main[:3000], g_main[:3000], 0.01),
         "widths_31_100_1": ((ws1, bs1, nodes, ccw), x_other, h1, g_other, 0.01),
         "widths_31_128_64_1": ((ws2, bs2, nodes, ccw), x_other, h2, g_other, 0.01),
+        **edge_cases,
+        "ragged_1003_rows": (mnist, x_main[:1003], h_main[:1003], g_main[:1003], 0.01),
+        # a pair tile over more than 3 rows: the collapse's sums over runs
+        "nodes_17": ((ws, bs, *cc_tensors(16, dev)), x_main[:2000], h_main[:2000], g_main[:2000],
+                     0.01),
+        "ragged_1003_rows_101_nodes": ((ws, bs, *p101), x_main[:1003], h_main[:1003],
+                                       g_main[:1003], 0.01),
     }
-    errs, auto_errs = {}, {}
+    errs, auto_errs, bwd_only = {}, {}, []
     for case, ((cws, cbs, cn, cw), x, h, g, slope) in cases.items():
         want = bwd_plain64(cws, cbs, x, h, cn, cw, g, slope)
         plain = ik.fused_cc_integral_bwd_plain(cws, cbs, x, h, cn, cw, g, slope)
-        got = ik.fused_cc_integral_bwd(cws, cbs, x, h, cn, cw, g, slope)
+        try:
+            got = ik.fused_cc_integral_bwd(cws, cbs, x, h, cn, cw, g, slope)
+        except ValueError as err:
+            # widths the backward kernel takes and the forward kernel does
+            # not (31-128-128-1: 237 KB forward): its launcher alone
+            check("integrand_fwd" in str(err), f"bwd {case}: {err}")
+            widths = [w.shape[1] for w in cws] + [1]
+            got = ik._launch_bwd(cws, cbs, x, h, cn, cw, g, slope, widths, "")
+            bwd_only.append(case)
         torch.cuda.synchronize()
         errs[case] = worst(compare_bwd(got, plain, want, f"bwd {case}"))
-        auto = bwd_through_autograd(cws, cbs, x, h, cn, cw, g, slope)
-        torch.cuda.synchronize()
-        auto_errs[case] = worst(compare_bwd(auto, plain[:4], want[:4], f"bwd {case} via autograd"))
+        auto = None
+        if case not in bwd_only:
+            auto = bwd_through_autograd(cws, cbs, x, h, cn, cw, g, slope)
+            torch.cuda.synchronize()
+            auto_errs[case] = worst(compare_bwd(auto, plain[:4], want[:4],
+                                                f"bwd {case} via autograd"))
         if case == "x_zero":
             check(all(bool((d == 0).all()) for d in got[0]), "bwd: x=0 must give dW=0")
         del want, plain, got, auto
@@ -547,7 +603,7 @@ def phase_bwd(gen, dev, nodes, ccw, block):
           "bwd: two runs must agree bit for bit")
     # widths the backward cannot take raise before any launch, also those
     # whose forward alone would fit (eight 64-wide layers: 189 KB forward,
-    # 252 KB backward)
+    # 246 KB backward)
     launched = dict(ik.LAUNCHES)
     ws3, bs3, h3 = integrand_inputs(gen, [31, 129, 1], 64, dev)
     ws4, bs4, h4 = integrand_inputs(gen, [31] + [64] * 7 + [1], 64, dev)
@@ -565,11 +621,16 @@ def phase_bwd(gen, dev, nodes, ccw, block):
     check(ik.LAUNCHES == launched, "bwd: a refused call must launch nothing")
     with torch.inference_mode():  # the forward alone takes the eight 64-wide layers
         ik.fused_cc_integral(ws4, bs4, x64, h4, nodes, ccw)
-    report("bwd", rows=R, nodes=nodes.numel(), widths=WIDTHS,
+    shape = {f"mnist_{k}_nodes": bwd_launch_shape(WIDTHS, k)
+             for k in (nodes.numel(), p101[0].numel())}
+    shape.update({f"widths_{'_'.join(map(str, w))}": bwd_launch_shape(list(w), nodes.numel())
+                  for w in ((31, 128, 128, 1), (31, 128, 128, 76, 1))})
+    report("bwd", rows=R, nodes=nodes.numel(), widths=WIDTHS, launch_shape=shape,
            reference="plain version in float64",
            tol={"row_scale": BWD_ROW_SCALE, "param_scale": BWD_PARAM_SCALE,
                 "plain_factor": BWD_PLAIN_FACTOR},
-           cases=errs, cases_via_autograd=auto_errs, refused=list(refused))
+           cases=errs, cases_via_autograd=auto_errs, cases_backward_only=bwd_only,
+           refused=list(refused))
     return g_main, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}
 
 
@@ -1183,7 +1244,9 @@ def main() -> None:
     report("timing", fwd_kernel_ms=fwd_ms, fwd_kernel_device_ms=fwd_device_ms,
            fwd_plain_ms=fwd_plain_ms, fwd_bound=fwd_bound,
            bwd_kernel_ms=bwd_ms, bwd_kernel_device_ms=bwd_device_ms, bwd_plain_ms=bwd_plain_ms,
-           bwd_bound=bwd_bound, compute_bpp_ms=bpp_ms, compute_bpp_plain_ms=bpp_plain_ms,
+           bwd_bound=bwd_bound, bwd_device_bound_share=bwd_bound["bound_ms"] / bwd_device_ms,
+           bwd_launch_shape=bwd_launch_shape(WIDTHS, K),
+           compute_bpp_ms=bpp_ms, compute_bpp_plain_ms=bpp_plain_ms,
            train_step_ms=train_ms, train_step_plain_ms=train_plain_ms,
            train_step_peak_mem_bytes=peak_bytes,
            fwd_tflops=fwd_bound["bound_flop"] / fwd_ms / 1e9,

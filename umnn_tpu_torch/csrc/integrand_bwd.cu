@@ -7,7 +7,7 @@
 // respect to every weight and bias, h_r and x_r (node path and product rule).
 //
 // Replaces the TPU kernel `_bwd_kernel` of umnn_tpu/ops/integrand_kernel.py
-// (:156-317, launched by `_run_bwd` :954) together with its host fold in
+// (:156-317, launched by `_run_bwd` :981) together with its host fold in
 // `_fused_vjp_bwd` (:1157-1198). What it computes, per (row, node) pair:
 //   - the forward chain again (nothing of the forward is saved); the
 //     LeakyReLU derivative comes from a > 0 and the ELU+1 derivative from
@@ -37,16 +37,48 @@
 // chip_smoke.py::bwd_kernel_flops), against 20 MB of inputs and outputs:
 // 4.6 ms at the 66.9 TFLOP/s float32 peak, 6 us at 3.35 TB/s.
 //
-// What this simple design does about that bound: plain float32 FMA on the
-// CUDA cores (no TF32, no tensor cores). All weights, the per-row first-layer
-// part and every hidden activation of a tile of MT (row, node) pairs live in
-// shared memory; the dz of a layer overwrites that layer's activations in
-// place. Each product is a shared-memory tile with a 4x4 register tile per
-// thread. The per-block dW/db partials are read-modified-written in device
-// memory once per pair tile; at 64 KB per block they stay in L2. Known waste,
-// left to later work: warp tiles of 16 x 32 (dW) and 32 x 16 (dz) cover a
-// 50 x 50 product as 64 x 64, so 39% of those lanes are masked; one block
-// of 8 warps per SM is all the shared memory fits.
+// What the design does about that bound: plain float32 FMA on the CUDA cores
+// (no TF32, no tensor cores), in one block of 16 warps per SM (512 threads, at
+// most 128 registers each) that holds in shared memory the weights, every
+// hidden activation of a tile of MT = 64 (row, node) pairs (the dz of a layer
+// overwrites that layer's activations in place) and the block's dW/db sums:
+// 213 KB at MNIST widths, K = 51 or 101.
+//   - dW/db sums stay on chip for the block's whole walk over its row tiles.
+//     Each element has one owner thread, the one whose register tile covers
+//     it in every pair tile, so no barrier guards it; the block writes its
+//     slice of the workspace once, at the end, with coalesced stores. When
+//     the sums of every layer do not fit (e.g. 31-128-128-1), the layers
+//     from the last one down that fit stay on chip and the rest are
+//     read-modified-written in the slice once per pair tile, by the same
+//     code through a generic pointer. dW1 and db1 (the h part, summed per
+//     row tile) go to the slice once per 16-row tile, coalesced; dW1's x
+//     column stays on chip.
+//   - Weights are stored at their real width rounded up to 4 floats, plus 4
+//     when that is an even number of 16-byte chunks (52 for 50, 100 for 100);
+//     activation rows are MT + 4 = 68 floats apart, an odd number of chunks
+//     too, so that rows read side by side fall in different banks.
+//   - Register tiles fit 50 and 100: the forward gives a thread 4 pairs x 4
+//     outputs (8 warps at width 50); the dz product 8 pairs x 4 inputs, in
+//     registers, on ceil(din/16) warps while the other warps run the dW
+//     product (2 dz rows x 4 input columns a thread, 4 rows where the dz
+//     warps leave too few threads, db as the column of a row of ones),
+//     after which the dz overwrites the activations. At MNIST widths that
+//     pads 50 to 52 at most (4%). The block's layout comes in as a kernel
+//     parameter, read from the constant bank, so that the 128 registers go
+//     to the tiles and to loading each product's next operands before its
+//     current FMAs: ptxas reports no spills.
+//   - No serial tail: the output layer's dot product, its dW row, the
+//     layer-1 collapse (dW1's x column, dz_sum by row, x's node path) and the
+//     node sums of S and dx by row are spread over warps and reduced with
+//     warp shuffles in a fixed order; the row sums of a pair tile run on a
+//     warp that the next phase leaves idle. A pair tile takes 16 barriers at
+//     MNIST widths (17 before).
+// What is left (per-phase clocks of ops/bwd_phase_clock.py, MNIST block):
+// the three products take about 83% of the time; counting the floats their
+// register tiles load, they keep shared memory (128 bytes a clock) about
+// 70% busy, and larger tiles need more registers than 512 threads leave.
+// The row tile's last pair tile is part empty (816 pairs in 13 tiles of 64
+// at K = 51).
 
 #include "common.cuh"
 
@@ -54,211 +86,350 @@ namespace {
 
 constexpr int TR = 16;          // rows per row tile
 constexpr int MT = 64;          // (row, node) pairs per pair tile
-constexpr int LDA = MT + 4;     // row stride of an activation buffer
-constexpr int NTHREADS = 256;
+constexpr int LDA = MT + 4;     // row stride of an activation buffer (an odd count of 16 B)
+constexpr int NTHREADS = 512;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int MAX_WIDTH = 128;  // hidden width
 constexpr int MAX_FIRST = 1 << 30;  // 1 + e: bounded by shared memory alone
+constexpr long long SMEM_LIMIT = 232448;  // an H100 block's opt-in shared memory
+static_assert(MT == 4 * NWARPS, "the output layer gives each warp 4 pairs");
+static_assert(TR <= 32, "a row tile's S and dx are written by the lanes of one warp");
+
+// Row stride of a weight matrix with `dout` columns: an odd number of
+// 16-byte chunks, so that rows read side by side fall in different banks.
+inline int ldw_for(int dout) {
+  const int v = round_up(dout, 4);
+  return (v / 4) % 2 ? v : v + 4;
+}
 
 // Offsets into shared memory, in floats, each a multiple of 4 (16 bytes).
 struct Layout {
-  int w1t, b1, wout, ph, dzsum, xs, gs, s, ccw, fw, vx, dzl, total;
+  int w1t, b1, wout, ph, dzsum, xs, gs, sacc, dxacc, s, ccw, fwl, dzl, xsum, sums, total;
+  int sums_from;  // first layer whose dW/db sums are on chip; n_layers: none
   int hid_w[MAX_LAYERS], hid_b[MAX_LAYERS], ldw[MAX_LAYERS];
+  int P, pw[MAX_LAYERS], pb[MAX_LAYERS];  // the flat gradient (param_offsets)
   int act[MAX_LAYERS];  // output of layer l, [w[l+1]][LDA], l = 0 .. n_layers-2
 };
 
-__host__ __device__ inline Layout make_layout(const Dims& d, int K) {
+inline Layout make_layout(const Dims& d, int K) {
   Layout L;
-  const int H1 = d.w[1];
+  const int nl = d.n_layers, F = d.w[0], H1 = d.w[1], dl = d.w[nl - 1];
   int off = 0;
-  L.w1t = off;  off += round_up(d.w[0] * H1, 4);  // W1 transposed: [1+e][H1]
+  L.w1t = off;  off += round_up(F * H1, 4);  // W1 transposed: [1+e][H1]
   L.b1 = off;   off += round_up(H1, 4);
-  for (int l = 1; l < d.n_layers - 1; ++l) {      // hidden: W^T [din][ldw], b [ldw]
-    // +4: rows 4 apart fall in other banks when read by column (bwd_da)
-    L.ldw[l] = round_up(d.w[l + 1], 16) + 4;
+  for (int l = 1; l < nl - 1; ++l) {          // hidden: W^T [din][ldw], b [ldw]
+    L.ldw[l] = ldw_for(d.w[l + 1]);
     L.hid_w[l] = off;  off += d.w[l] * L.ldw[l];
     L.hid_b[l] = off;  off += L.ldw[l];
   }
-  L.wout = off;  off += round_up(d.w[d.n_layers - 1] + 1, 4);  // output row, then its bias
+  L.wout = off;  off += round_up(dl + 1, 4);  // output row, then its bias
   L.ph = off;    off += TR * H1;
   L.dzsum = off; off += TR * H1;
   L.xs = off;    off += TR;
   L.gs = off;    off += TR;
   L.s = off;     off += round_up(K, 4);
   L.ccw = off;   off += round_up(K, 4);
-  L.fw = off;    off += round_up(TR * K, 4);
-  L.vx = off;    off += round_up(TR * K, 4);
-  L.dzl = off;   off += MT;
-  for (int l = 0; l < d.n_layers - 1; ++l) {
+  L.sacc = off;  off += TR;  // S and x's node path of the row tile's rows
+  L.dxacc = off; off += TR;
+  L.fwl = off;   off += MT;  // per pair: w_n f, ones for the db column, x's node path
+  L.dzl = off;   off += MT;  // per pair: dzL
+  for (int l = 0; l < nl - 1; ++l) {
     L.act[l] = off;
     off += d.w[l + 1] * LDA;
   }
-  L.total = off;
+  // On chip, as far as the block's shared memory holds them: dW1's x column,
+  // then the dW/db sums of layers sums_from .. nl-1 in the flat gradient's
+  // order, as many layers from the output down as fit.
+  const int P = L.P = param_offsets(d, L.pw, L.pb);
+  const int* pw = L.pw;
+  L.xsum = off;
+  L.sums = off + round_up(H1, 4);
+  L.sums_from = nl;
+  for (int l = 1; l < nl; ++l)
+    if ((long long)(L.sums + round_up(P - pw[l], 4)) * 4 <= SMEM_LIMIT) {
+      L.sums_from = l;
+      break;
+    }
+  L.total = L.sums_from < nl ? L.sums + round_up(P - pw[L.sums_from], 4) : off;
   return L;
 }
 
-// Forward of one hidden layer: out[j][m] = leaky(sum_k in[k][m] w[k][j] + b[j]).
-// A warp computes 32 pairs x 16 outputs; each lane a 4x4 register tile.
-__device__ void fwd_layer(const float* __restrict__ in, float* __restrict__ out,
-                          const float* __restrict__ w, const float* __restrict__ bias,
-                          int din, int dout, int ldw, float neg_slope) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int mtiles = MT / 32;
-  const int ntiles = mtiles * ((dout + 15) / 16);
-  for (int t = warp; t < ntiles; t += NWARPS) {
-    const int m0 = (t % mtiles) * 32 + (lane & 7) * 4;
-    const int j0 = (t / mtiles) * 16 + (lane >> 3) * 4;
+// Forward of one hidden layer: out[n][m] = leaky(sum_k in[k][m] w[k][n] + b[n]).
+// A thread computes 4 pairs x 4 outputs; a warp 32 pairs x 16 outputs: lane
+// l takes pairs from m0 = 32 (w % 2) + 4 (l >> 2) and outputs from
+// n0 = 16 (w / 2) + 4 (l & 3). Lanes past the last output load nothing. The
+// next k's operands are loaded before this k's FMAs.
+__device__ __forceinline__ void fwd_layer(const float* __restrict__ in, float* __restrict__ out,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ bias, int din, int dout,
+                                          int ldw, float neg_slope) {
+  const int lane = threadIdx.x & 31;
+  const int nwt = 2 * (((dout + 3) / 4 + 3) / 4);
+  for (int wt = threadIdx.x >> 5; wt < nwt; wt += NWARPS) {
+    const int m0 = 32 * (wt % 2) + (lane >> 2) * 4;
+    const int n0 = ((wt / 2) * 4 + (lane & 3)) * 4;
+    if (n0 >= dout) continue;
+    const float* pa = in + m0;
+    const float* pw = w + n0;
     float acc[4][4] = {};
+    float4 a = ld4(pa), b = ld4(pw);
 #pragma unroll 4
     for (int k = 0; k < din; ++k) {
-      const float4 a = ld4(in + k * LDA + m0);
-      const float4 b = ld4(w + k * ldw + j0);
+      const int kn = min(k + 1, din - 1);
+      const float4 an = ld4(pa + kn * LDA), bn = ld4(pw + kn * ldw);
       const float av[4] = {a.x, a.y, a.z, a.w};
       const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+      a = an;
+      b = bn;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j0 + j < dout) {
-        const float bj = bias[j0 + j];
+    for (int c = 0; c < 4; ++c) {
+      if (n0 + c < dout) {
+        const float bc = bias[n0 + c];
         float4 o;
-        o.x = leaky(acc[0][j] + bj, neg_slope);
-        o.y = leaky(acc[1][j] + bj, neg_slope);
-        o.z = leaky(acc[2][j] + bj, neg_slope);
-        o.w = leaky(acc[3][j] + bj, neg_slope);
-        *reinterpret_cast<float4*>(out + (j0 + j) * LDA + m0) = o;
+        o.x = leaky(acc[0][c] + bc, neg_slope);
+        o.y = leaky(acc[1][c] + bc, neg_slope);
+        o.z = leaky(acc[2][c] + bc, neg_slope);
+        o.w = leaky(acc[3][c] + bc, neg_slope);
+        *reinterpret_cast<float4*>(out + (n0 + c) * LDA + m0) = o;
       }
     }
   }
 }
 
-// dz of the layer below, in place of its activations:
-// act[k][m] := (sum_j W[j][k] dz[j][m]) * leaky'(act[k][m]), with W read from
-// its transpose wt [din][ldw]. A lane's 4 k rows are 4 apart, so the four
-// lane groups of a warp read consecutive rows of wt (different banks).
-__device__ void bwd_da(const float* __restrict__ dz, float* __restrict__ act,
-                       const float* __restrict__ wt, int din, int dout, int ldw,
-                       float neg_slope) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int mtiles = MT / 32;
-  const int ntiles = mtiles * ((din + 15) / 16);
-  for (int t = warp; t < ntiles; t += NWARPS) {
-    const int m0 = (t % mtiles) * 32 + (lane & 7) * 4;
-    const int kb = (t / mtiles) * 16 + (lane >> 3);  // rows kb + 4*kk
-    const float* wr[4];
+// Warps that the dz product of a layer with `din` inputs takes: a warp
+// computes 64 pairs x 16 consecutive k, a thread 8 pairs x 4 k, once.
+__device__ __forceinline__ int da_warps(int din) { return (din + 15) / 16; }
+
+// The dz product of the layer below, sum_j W[j][k] dz[j][m], into registers:
+// a thread takes pairs m0 .. m0+3, m0+32 .. m0+35 (m0 = 4 (lane >> 2)) and
+// k = k0 .. k0+3 (k0 = 16 warp + 4 (lane & 3)), reading W from its
+// transpose wt [din][ldw] 4 j at a time. For warps below da_warps(din).
+__device__ __forceinline__ void bwd_da(const float* __restrict__ dz, const float* __restrict__ wt,
+                                       int din, int dout, int ldw, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int m0 = (lane >> 2) * 4, k0 = (threadIdx.x >> 5) * 16 + (lane & 3) * 4;
+  const float* wr[4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wr[kk] = wt + min(kb + 4 * kk, din - 1) * ldw;
-    float acc[4][4] = {};  // [pair][k]
-#pragma unroll 4
-    for (int j = 0; j < dout; ++j) {
-      const float4 a = ld4(dz + j * LDA + m0);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      float bv[4];
+  for (int c = 0; c < 4; ++c) wr[c] = wt + min(k0 + c, din - 1) * ldw;
+  const float* pz = dz + m0;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) bv[kk] = wr[kk][j];
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  if (k0 >= din) return;  // lanes past the last k load nothing
+  const int j4 = dout & ~3;
+#pragma unroll 2
+  for (int j0 = 0; j0 < j4; j0 += 4) {
+    float4 bw[4];
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc[i][kk] = fmaf(av[i], bv[kk], acc[i][kk]);
+    for (int c = 0; c < 4; ++c) bw[c] = ld4(wr[c] + j0);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float4 a = ld4(pz + (j0 + jj) * LDA), a2 = ld4(pz + (j0 + jj) * LDA + 32);
+      const float av[8] = {a.x, a.y, a.z, a.w, a2.x, a2.y, a2.z, a2.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float b = jj == 0 ? bw[c].x : jj == 1 ? bw[c].y : jj == 2 ? bw[c].z : bw[c].w;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i][c] = fmaf(av[i], b, acc[i][c]);
+      }
     }
+  }
+  for (int j = j4; j < dout; ++j) {  // the last dout % 4 rows of dz
+    const float4 a = ld4(pz + j * LDA), a2 = ld4(pz + j * LDA + 32);
+    const float av[8] = {a.x, a.y, a.z, a.w, a2.x, a2.y, a2.z, a2.w};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int k = kb + 4 * kk;
-      if (k < din) {
-        float* p = act + k * LDA + m0;
+    for (int c = 0; c < 4; ++c) {
+      const float b = wr[c][j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i][c] = fmaf(av[i], b, acc[i][c]);
+    }
+  }
+}
+
+// act[k][m] := acc * leaky'(act[k][m]): bwd_da's result, in place of the
+// activations it is the dz of (once every warp is past reading them).
+__device__ __forceinline__ void bwd_da_store(float* __restrict__ act, int din, float neg_slope,
+                                             const float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int m0 = (lane >> 2) * 4, k0 = (threadIdx.x >> 5) * 16 + (lane & 3) * 4;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (k0 + c < din) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* p = act + (k0 + c) * LDA + m0 + 32 * h;
         const float4 a = ld4(p);
         float4 o;
-        o.x = acc[0][kk] * (a.x > 0.f ? 1.f : neg_slope);
-        o.y = acc[1][kk] * (a.y > 0.f ? 1.f : neg_slope);
-        o.z = acc[2][kk] * (a.z > 0.f ? 1.f : neg_slope);
-        o.w = acc[3][kk] * (a.w > 0.f ? 1.f : neg_slope);
+        o.x = acc[4 * h + 0][c] * (a.x > 0.f ? 1.f : neg_slope);
+        o.y = acc[4 * h + 1][c] * (a.y > 0.f ? 1.f : neg_slope);
+        o.z = acc[4 * h + 2][c] * (a.z > 0.f ? 1.f : neg_slope);
+        o.w = acc[4 * h + 3][c] * (a.w > 0.f ? 1.f : neg_slope);
         *reinterpret_cast<float4*>(p) = o;
       }
     }
   }
 }
 
-// dW[j][k] += sum_m a[k][m] dz[j][m] and db[j] += sum_m dz[j][m], into this
-// block's partial sums. A warp covers 16 k x 32 j; a lane 4 consecutive k and
-// 4 j rows 8 apart (the 8 lanes of a quarter warp read 8 consecutive dz rows).
-__device__ void bwd_dw(const float* __restrict__ a, const float* __restrict__ dz,
-                       float* __restrict__ dw, float* __restrict__ db, int din, int dout) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ktiles = (din + 15) / 16;
-  const int ntiles = ktiles * ((dout + 31) / 32);
-  for (int t = warp; t < ntiles; t += NWARPS) {
-    const int k0 = (t % ktiles) * 16 + (lane >> 3) * 4;
-    const int jb = (t / ktiles) * 32 + (lane & 7);
-    const float* ar[4];
-    const float* dr[4];
+// dW[j][k] += sum_m a[k][m] dz[j][m] and db[j] += sum_m dz[j][m], into the
+// block's sums (on chip or in its slice): db is column k = din, against a
+// row of ones. Run by the threads from `first` on. A thread owns TJ rows
+// j = h + i*ngj and 4 columns k = g + c*nkg, the same in every pair tile;
+// thread t (counted from `first`) takes g = (t/4) % nkg and
+// h = 4 (t/4 / nkg) + t % 4, so a quarter warp reads 2 rows of a (the warp
+// 8, side by side) and 4 of dz. The next 4 pairs' operands are loaded before
+// this 4's FMAs.
+template <int TJ>
+__device__ __forceinline__ void bwd_dw(const float* __restrict__ a, const float* __restrict__ dz,
+                                       const float* __restrict__ ones, float* dw, float* db,
+                                       int din, int dout, int first) {
+  constexpr int TK = 4;
+  const int nkg = (din + 1 + TK - 1) / TK, ngj = (dout + TJ - 1) / TJ;
+  const int ntiles = nkg * round_up(ngj, 4);
+  for (int t = threadIdx.x - first; t < ntiles; t += NTHREADS - first) {
+    const int g = (t >> 2) % nkg, hj = (t >> 2) / nkg * 4 + (t & 3);
+    if (hj >= ngj) continue;  // a padding lane of the last group of 4
+    const float* ar[TK];
+    const float* dr[TJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      ar[i] = a + min(k0 + i, din - 1) * LDA;
-      dr[i] = dz + min(jb + 8 * i, dout - 1) * LDA;
+    for (int c = 0; c < TK; ++c) {
+      const int k = g + c * nkg;
+      ar[c] = k < din ? a + k * LDA : ones;
     }
-    float acc[4][4] = {};  // [k][j]
-#pragma unroll 2
+#pragma unroll
+    for (int i = 0; i < TJ; ++i) dr[i] = dz + min(hj + i * ngj, dout - 1) * LDA;
+    float acc[TJ][TK] = {};
+    float4 av[TK], dv[TJ];
+#pragma unroll
+    for (int c = 0; c < TK; ++c) av[c] = ld4(ar[c]);
+#pragma unroll
+    for (int i = 0; i < TJ; ++i) dv[i] = ld4(dr[i]);
+#pragma unroll 4
     for (int m = 0; m < MT; m += 4) {
-      float4 av[4], dv[4];
+      const int mn = min(m + 4, MT - 4);
+      float4 an[TK], dn[TJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = ld4(ar[i] + m);
-        dv[i] = ld4(dr[i] + m);
-      }
+      for (int c = 0; c < TK; ++c) an[c] = ld4(ar[c] + mn);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TJ; ++i) dn[i] = ld4(dr[i] + mn);
+      // pair by pair, so that consecutive FMAs are independent
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          float s = acc[i][jj];
-          s = fmaf(av[i].x, dv[jj].x, s);
-          s = fmaf(av[i].y, dv[jj].y, s);
-          s = fmaf(av[i].z, dv[jj].z, s);
-          s = fmaf(av[i].w, dv[jj].w, s);
-          acc[i][jj] = s;
-        }
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int c = 0; c < TK; ++c) acc[i][c] = fmaf(av[c].x, dv[i].x, acc[i][c]);
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int c = 0; c < TK; ++c) acc[i][c] = fmaf(av[c].y, dv[i].y, acc[i][c]);
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int c = 0; c < TK; ++c) acc[i][c] = fmaf(av[c].z, dv[i].z, acc[i][c]);
+#pragma unroll
+      for (int i = 0; i < TJ; ++i)
+#pragma unroll
+        for (int c = 0; c < TK; ++c) acc[i][c] = fmaf(av[c].w, dv[i].w, acc[i][c]);
+#pragma unroll
+      for (int c = 0; c < TK; ++c) av[c] = an[c];
+#pragma unroll
+      for (int i = 0; i < TJ; ++i) dv[i] = dn[i];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < TJ; ++i) {
+      const int j = hj + i * ngj;
+      if (j < dout) {
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int k = k0 + i, j = jb + 8 * jj;
-        if (k < din && j < dout) dw[j * din + k] += acc[i][jj];
+        for (int c = 0; c < TK; ++c) {
+          const int k = g + c * nkg;
+          if (k < din) dw[j * din + k] += acc[i][c];
+          else if (k == din) db[j] += acc[i][c];
+        }
       }
+    }
   }
-  for (int j = threadIdx.x; j < dout; j += NTHREADS) {
-    float acc = 0.f;
-    for (int m = 0; m < MT; ++m) acc += dz[j * LDA + m];
-    db[j] += acc;
+}
+
+// __syncthreads() for code that warps reach by different paths (each warp
+// as a whole): the barrier without .aligned.
+__device__ __forceinline__ void sync_block() { asm volatile("barrier.sync 0;" ::: "memory"); }
+
+__device__ __forceinline__ float warp_sum(float v, int width) {
+  for (int o = width / 2; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sums v over each run of lanes with equal r (r is nondecreasing over the
+// warp); the run's first lane gets the total and `head`, lanes with r < 0
+// never do. The order of the additions is fixed.
+__device__ __forceinline__ float run_sum(float v, int r, bool* head) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const float u = __shfl_down_sync(0xffffffffu, v, o);
+    const int ru = __shfl_down_sync(0xffffffffu, r, o);
+    if (lane + o < 32 && ru == r) v += u;
+  }
+  const int rp = __shfl_up_sync(0xffffffffu, r, 1);
+  *head = r >= 0 && (lane == 0 || rp != r);
+  return v;
+}
+
+// Adds a pair tile's per-pair values v[m] (pair q = p0 + m) into acc[row],
+// by runs of pairs of one row; for one warp.
+__device__ __forceinline__ void add_by_row(const float* v, float* acc, int p0, int PQ, int K) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int q = p0 + half * 32 + lane;
+    bool head;
+    const float t = run_sum(v[half * 32 + lane], q < PQ ? q / K : -1, &head);
+    if (head) acc[q / K] += t;
+    __syncwarp();
   }
 }
 
 // params: for each layer l, W_l transposed, [w[l]][w[l+1]] row-major, then
 // b_l [w[l+1]] (the forward kernel's layout). partial: gridDim.x slices of
-// the flat gradient (per layer dW [dout][din], then db).
+// the flat gradient (per layer dW [dout][din], then db). L: make_layout(d, K),
+// computed on the host, so that the kernel reads it from the constant bank
+// of its parameters instead of holding it in registers.
 __global__ void __launch_bounds__(NTHREADS, 1)
 integrand_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const float* __restrict__ params, const float* __restrict__ nodes,
                      const float* __restrict__ ccw, const float* __restrict__ g,
                      float* __restrict__ dx, float* __restrict__ dh, float* __restrict__ S,
-                     float* __restrict__ partial, int R, int K, Dims d, float neg_slope) {
+                     float* __restrict__ partial, int R, int K, Dims d, Layout L,
+                     float neg_slope) {
   extern __shared__ __align__(16) float sm[];
-  const Layout L = make_layout(d, K);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nl = d.n_layers;
   const int F = d.w[0], e = F - 1, H1 = d.w[1], dl = d.w[nl - 1];
-  int pw[MAX_LAYERS], pb[MAX_LAYERS];
-  const int P = param_offsets(d, pw, pb);
+  const int* pw = L.pw;
+  const int* pb = L.pb;
+  const int P = L.P;
+  const int lo = L.sums_from, n_on_chip = lo < nl ? P - pw[lo] : 0;
   float* part = partial + (size_t)blockIdx.x * P;
-  for (int i = tid; i < P; i += NTHREADS) part[i] = 0.f;
+  float* sums = sm + L.sums;
+  // Where layer l's dW (then its db) and dW1's x column accumulate.
+  auto dw_of = [&](int l) { return l >= lo ? sums + (pw[l] - pw[lo]) : part + pw[l]; };
+  float* xcol = lo < nl ? sm + L.xsum : part + pw[0];
+  const int xstride = lo < nl ? 1 : F;
+  for (int i = tid; i < (lo < nl ? pw[lo] : P); i += NTHREADS) part[i] = 0.f;
+  for (int i = tid; i < n_on_chip; i += NTHREADS) sums[i] = 0.f;
 
-  // Stage the weights, zero-padded to ldw columns.
+  // Stage the weights, hidden ones zero-padded to ldw columns.
   const float* p = params;
   for (int i = tid; i < F * H1; i += NTHREADS) sm[L.w1t + i] = p[i];
   p += F * H1;
-  for (int j = tid; j < H1; j += NTHREADS) sm[L.b1 + j] = p[j];
+  for (int j = tid; j < H1; j += NTHREADS) {
+    sm[L.b1 + j] = p[j];
+    if (lo < nl) sm[L.xsum + j] = 0.f;
+  }
   p += H1;
   for (int l = 1; l < nl - 1; ++l) {
     const int din = d.w[l], dout = d.w[l + 1], ldw = L.ldw[l];
@@ -285,146 +456,235 @@ integrand_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
   float* dzsum = sm + L.dzsum;
   float* xs = sm + L.xs;
   float* gs = sm + L.gs;
-  float* fw = sm + L.fw;
-  float* vx = sm + L.vx;
+  float* sacc = sm + L.sacc;
+  float* dxacc = sm + L.dxacc;
+  float* fwl = sm + L.fwl;
   float* dzl = sm + L.dzl;
   const int PQ = TR * K;  // pair q = r*K + n of the row tile
   const int n_tiles = (R + TR - 1) / TR;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * TR;
+    const int rows = min(TR, R - row0);
+    const float* ht = h + (size_t)row0 * e;
     // Rows past R get x = g = 0 and h = 0: every cotangent of theirs is 0.
     for (int r = tid; r < TR; r += NTHREADS) {
-      const bool ok = row0 + r < R;
-      xs[r] = ok ? x[row0 + r] : 0.f;
-      gs[r] = ok ? g[row0 + r] : 0.f;
+      xs[r] = r < rows ? x[row0 + r] : 0.f;
+      gs[r] = r < rows ? g[row0 + r] : 0.f;
+      sacc[r] = 0.f;
+      dxacc[r] = 0.f;
     }
     // Node-invariant first layer, once per row: ph = h W1[:, 1:]^T + b1.
     for (int i = tid; i < TR * H1; i += NTHREADS) {
       const int r = i / H1, j = i % H1;
       float acc = 0.f;
-      if (row0 + r < R) {
-        const float* hr = h + (size_t)(row0 + r) * e;
-        for (int k = 0; k < e; ++k) acc = fmaf(hr[k], w1t[(k + 1) * H1 + j], acc);
-      }
+      if (r < rows)
+        for (int k = 0; k < e; ++k) acc = fmaf(ht[r * e + k], w1t[(k + 1) * H1 + j], acc);
       ph[i] = acc + sm[L.b1 + j];
       dzsum[i] = 0.f;
     }
     __syncthreads();
 
     for (int p0 = 0; p0 < PQ; p0 += MT) {
+      // Layer 1 forward; each thread one pair m and every 8th unit. With no
+      // hidden layer, the last warp first adds the previous pair tile's node
+      // paths into dx by row (else it does so in the first forward product,
+      // where it is idle).
+      {
+        if (warp == NWARPS - 1 && p0 > 0 && nl == 2) add_by_row(fwl, dxacc, p0 - MT, PQ, K);
+        const int m = tid % MT, q = p0 + m;
+        const bool ok = q < PQ;
+        const int r = ok ? q / K : 0, n = q - r * K;
+        const float sx = ok ? sn[n] * xs[r] : 0.f;
+        float* a0 = sm + L.act[0];
+        for (int j = tid / MT; j < H1; j += NTHREADS / MT)
+          a0[j * LDA + m] = ok ? leaky(fmaf(sx, w1t[j], ph[r * H1 + j]), neg_slope) : 0.f;
+      }
+      __syncthreads();
       // Forward again, keeping every hidden activation.
-      float* a0 = sm + L.act[0];
-      for (int i = tid; i < H1 * MT; i += NTHREADS) {
-        const int j = i / MT, m = i % MT, q = p0 + m;
-        float v = 0.f;
-        if (q < PQ) {
-          const int r = q / K, n = q - r * K;
-          v = leaky(ph[r * H1 + j] + sn[n] * xs[r] * w1t[j], neg_slope);
-        }
-        a0[j * LDA + m] = v;
-      }
-      __syncthreads();
       for (int l = 1; l < nl - 1; ++l) {
-        fwd_layer(sm + L.act[l - 1], sm + L.act[l], sm + L.hid_w[l], sm + L.hid_b[l],
-                  d.w[l], d.w[l + 1], L.ldw[l], neg_slope);
+        const int din = d.w[l], dout = d.w[l + 1];
+        if (l == 1 && warp == NWARPS - 1 && p0 > 0) add_by_row(fwl, dxacc, p0 - MT, PQ, K);
+        fwd_layer(sm + L.act[l - 1], sm + L.act[l], sm + L.hid_w[l], sm + L.hid_b[l], din, dout,
+                  L.ldw[l], neg_slope);
         __syncthreads();
       }
-      // Output layer: f, its quadrature term, and the pair's cotangent
-      // dzL = w_n g_r x_r/2 * min(f, 1) (pairs past the tile get 0).
+      // Output layer, 4 pairs per warp and 8 lanes per pair: f, its
+      // quadrature term and the pair's cotangent dzL = w_n g_r x_r/2 min(f, 1)
+      // (0 past the row tile).
       float* aL = sm + L.act[nl - 2];
-      for (int m = tid; m < MT; m += NTHREADS) {
-        const int q = p0 + m;
-        float dz = 0.f;
-        if (q < PQ) {
-          const int r = q / K, n = q - r * K;
-          float z = 0.f;
-          for (int k = 0; k < dl; ++k) z = fmaf(aL[k * LDA + m], wout[k], z);
-          z += wout[dl];
-          const float f = z > 0.f ? z + 1.f : expf(z);  // ELU + 1
-          fw[q] = cw[n] * f;
-          dz = cw[n] * gs[r] * xs[r] * 0.5f * fminf(f, 1.f);
-        }
-        dzl[m] = dz;
-      }
-      __syncthreads();
-      // The output layer's dW (one row) and db.
-      for (int k = tid; k <= dl; k += NTHREADS) {
-        float acc = 0.f;
-        if (k < dl) {
-          for (int m = 0; m < MT; ++m) acc = fmaf(aL[k * LDA + m], dzl[m], acc);
-          part[pw[nl - 1] + k] += acc;
-        } else {
-          for (int m = 0; m < MT; ++m) acc += dzl[m];
-          part[pb[nl - 1]] += acc;
-        }
-      }
-      __syncthreads();
-      // dz of the last hidden layer, in place of its activations.
-      for (int i = tid; i < dl * MT; i += NTHREADS) {
-        const int k = i / MT, m = i % MT;
-        const float a = aL[k * LDA + m];
-        aL[k * LDA + m] = dzl[m] * wout[k] * (a > 0.f ? 1.f : neg_slope);
-      }
-      __syncthreads();
-      for (int l = nl - 2; l >= 1; --l) {
-        bwd_dw(sm + L.act[l - 1], sm + L.act[l], part + pw[l], part + pb[l], d.w[l],
-               d.w[l + 1]);
-        __syncthreads();
-        bwd_da(sm + L.act[l], sm + L.act[l - 1], sm + L.hid_w[l], d.w[l], d.w[l + 1],
-               L.ldw[l], neg_slope);
-        __syncthreads();
-      }
-      // Layer 1: act[0] now holds dz1. The node axis collapses here, each
-      // sum taken by one thread in pair order.
-      const float* dz1 = sm + L.act[0];
-      for (int i = tid; i < H1 + MT; i += NTHREADS) {
-        if (i < H1) {  // column j: dW1[j][0] and dz_sum[:, j]
-          const int j = i;
-          float accx = 0.f;
-          for (int m = 0; m < MT && p0 + m < PQ; ++m) {
-            const int q = p0 + m, r = q / K, n = q - r * K;
-            const float v = dz1[j * LDA + m];
-            accx = fmaf(sn[n] * xs[r], v, accx);
-            dzsum[r * H1 + j] += v;
-          }
-          part[pw[0] + j * F] += accx;
-        } else {  // pair m: s_n (dz1 . W1[:, 0]), x's node path
-          const int m = i - H1, q = p0 + m;
+      {
+        const int m = warp * 4 + (lane >> 3), kl = lane & 7;
+        float z = 0.f;
+        for (int k = kl; k < dl; k += 8) z = fmaf(aL[k * LDA + m], wout[k], z);
+        z = warp_sum(z, 8) + wout[dl];
+        if (kl == 0) {
+          const int q = p0 + m, r = q / K, n = q - r * K;
+          float dz = 0.f, fq = 0.f;
           if (q < PQ) {
-            const int n = q % K;
-            float acc = 0.f;
-            for (int j = 0; j < H1; ++j) acc = fmaf(dz1[j * LDA + m], w1t[j], acc);
-            vx[q] = sn[n] * acc;
+            const float f = z > 0.f ? z + 1.f : expf(z);  // ELU + 1
+            dz = cw[n] * gs[r] * xs[r] * 0.5f * fminf(f, 1.f);
+            fq = cw[n] * f;
           }
+          dzl[m] = dz;
+          fwl[m] = fq;
+        }
+      }
+      __syncthreads();
+      // A warp per unit k of the last hidden layer: the output layer's dW row
+      // (k = dl: its db) and the rank-1 dz of that layer, in place. The last
+      // warp instead adds the quadrature terms into S by row, then leaves
+      // ones in their place for the dW products' db column.
+      {
+        if (warp == NWARPS - 1) {
+          add_by_row(fwl, sacc, p0, PQ, K);
+          fwl[lane] = 1.f;
+          fwl[32 + lane] = 1.f;
+        }
+        float* dwo = dw_of(nl - 1);
+        const float z0 = dzl[lane], z1 = dzl[32 + lane];
+        for (int k0 = 0; k0 <= dl && warp < NWARPS - 1; k0 += NWARPS - 1) {
+          const int k = k0 + warp;
+          if (k > dl) break;
+          float c;
+          if (k < dl) {
+            float* pa = aL + k * LDA;
+            const float a0 = pa[lane], a1 = pa[32 + lane];
+            c = fmaf(a1, z1, a0 * z0);
+            const float wk = wout[k];
+            pa[lane] = z0 * wk * (a0 > 0.f ? 1.f : neg_slope);
+            pa[32 + lane] = z1 * wk * (a1 > 0.f ? 1.f : neg_slope);
+          } else {
+            c = z0 + z1;
+          }
+          c = warp_sum(c, 32);
+          if (lane == 0) dwo[k] += c;
+        }
+      }
+      __syncthreads();
+      // Each hidden layer's dW product on some warps while the others form
+      // the dz of the layer below in registers; that dz then overwrites the
+      // activations it is the dz of.
+      for (int l = nl - 2; l >= 1; --l) {
+        const int din = d.w[l], dout = d.w[l + 1];
+        float* dwl = dw_of(l);
+        const int nda = da_warps(din), first = nda * 32;
+        if (warp < nda) {
+          float dacc[8][4];
+          bwd_da(sm + L.act[l], sm + L.hid_w[l], din, dout, L.ldw[l], dacc);
+          sync_block();
+          bwd_da_store(sm + L.act[l - 1], din, neg_slope, dacc);
+        } else {
+          if ((din + 4) / 4 * round_up((dout + 1) / 2, 4) <= NTHREADS - first)
+            bwd_dw<2>(sm + L.act[l - 1], sm + L.act[l], fwl, dwl, dwl + dout * din, din, dout,
+                      first);
+          else
+            bwd_dw<4>(sm + L.act[l - 1], sm + L.act[l], fwl, dwl, dwl + dout * din, din, dout,
+                      first);
+          sync_block();
+        }
+        __syncthreads();
+      }
+      // Layer 1: act[0] now holds dz1 and the node axis collapses.
+      {
+        const float* dz1 = sm + L.act[0];
+        // dW1's x column and dz_sum by row. When the tile's pairs span at
+        // most three rows (K >= 32), 8 lanes take a unit j, each lane 8
+        // pairs in order, and their sums meet in 3 shuffle steps; else a
+        // warp takes a unit and sums each run of one row's pairs.
+        const int r_lo = p0 / K, r_hi = (min(p0 + MT, PQ) - 1) / K;
+        if (r_hi - r_lo <= 2) {
+          const int o8 = lane & 7, m0 = o8 * 8;
+          float sxv[8];  // s_n x_r of this lane's 8 pairs (0 past the row tile)
+          int rv[8];     // their rows, from r_lo
+          {
+            int r = (p0 + m0) / K, n = p0 + m0 - r * K;
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              sxv[i] = p0 + m0 + i < PQ ? sn[n] * xs[r] : 0.f;
+              rv[i] = r - r_lo;
+              if (++n == K) {
+                n = 0;
+                ++r;
+              }
+            }
+          }
+          for (int j0 = 0; j0 < H1; j0 += 4 * NWARPS) {
+            const int j = min(j0 + 4 * warp + (lane >> 3), H1 - 1);
+            const float4 va = ld4(dz1 + j * LDA + m0), vb = ld4(dz1 + j * LDA + m0 + 4);
+            const float v[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+            float t[4] = {};
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              t[0] = fmaf(sxv[i], v[i], t[0]);
+              t[1] += rv[i] == 0 ? v[i] : 0.f;
+              t[2] += rv[i] == 1 ? v[i] : 0.f;
+              t[3] += rv[i] == 2 ? v[i] : 0.f;
+            }
+#pragma unroll
+            for (int o = 1; o < 8; o *= 2)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) t[i] += __shfl_xor_sync(0xffffffffu, t[i], o);
+            if (o8 == 0 && j0 + 4 * warp + (lane >> 3) < H1) {
+              xcol[j * xstride] += t[0];
+              for (int i = 0; i <= r_hi - r_lo; ++i) dzsum[(r_lo + i) * H1 + j] += t[1 + i];
+            }
+          }
+        } else {
+          int rr[2];  // row of this lane's pair in each half warp, -1 past the row tile
+          float sx[2];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int q = p0 + half * 32 + lane, r = q / K;
+            rr[half] = q < PQ ? r : -1;
+            sx[half] = q < PQ ? sn[q - r * K] * xs[r] : 0.f;
+          }
+          for (int j0 = 0; j0 < H1; j0 += NWARPS) {
+            const int j = j0 + warp;
+            if (j >= H1) break;
+            const float v0 = dz1[j * LDA + lane], v1 = dz1[j * LDA + 32 + lane];
+            const float c = warp_sum(fmaf(sx[1], v1, sx[0] * v0), 32);
+            if (lane == 0) xcol[j * xstride] += c;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              bool head;
+              const float t = run_sum(half ? v1 : v0, rr[half], &head);
+              if (head) dzsum[rr[half] * H1 + j] += t;
+              __syncwarp();
+            }
+          }
+        }
+        // 4 pairs per warp, 8 lanes per pair: x's node path s_n (dz1 . W1[:, 0]).
+        const int m = warp * 4 + (lane >> 3), jl = lane & 7;
+        float acc = 0.f;
+        for (int j = jl; j < H1; j += 8) acc = fmaf(dz1[j * LDA + m], w1t[j], acc);
+        acc = warp_sum(acc, 8);
+        if (jl == 0) {
+          const int q = p0 + m;
+          fwl[m] = q < PQ ? sn[q - q / K * K] * acc : 0.f;
         }
       }
       __syncthreads();
     }
 
-    // The row tile's node sums, in node order.
-    for (int r = tid; r < TR; r += NTHREADS) {
-      if (row0 + r < R) {
-        float s_r = 0.f, dxn = 0.f;
-        for (int n = 0; n < K; ++n) {
-          s_r += fw[r * K + n];
-          dxn += vx[r * K + n];
-        }
-        S[row0 + r] = s_r;
-        dx[row0 + r] = dxn + gs[r] * s_r * 0.5f;  // + the product-rule term
+    // The row tile's S and dx, by the last warp after it adds the last
+    // pair tile's node paths.
+    if (warp == NWARPS - 1) {
+      add_by_row(fwl, dxacc, (PQ - 1) / MT * MT, PQ, K);
+      if (lane < rows) {
+        S[row0 + lane] = sacc[lane];
+        dx[row0 + lane] = dxacc[lane] + gs[lane] * sacc[lane] * 0.5f;  // + the product-rule term
       }
     }
     // dh = dz_sum W1[:, 1:].
-    for (int i = tid; i < TR * e; i += NTHREADS) {
+    for (int i = tid; i < rows * e; i += NTHREADS) {
       const int r = i / e, k = i % e;
-      if (row0 + r < R) {
-        float acc = 0.f;
-        for (int j = 0; j < H1; ++j) acc = fmaf(dzsum[r * H1 + j], w1t[(k + 1) * H1 + j], acc);
-        dh[(size_t)(row0 + r) * e + k] = acc;
-      }
+      float acc = 0.f;
+      for (int j = 0; j < H1; ++j) acc = fmaf(dzsum[r * H1 + j], w1t[(k + 1) * H1 + j], acc);
+      dh[(size_t)row0 * e + i] = acc;
     }
-    // dW1[:, 1:] += dz_sum^T h; the slot k = 0 (x's column, summed per pair
-    // tile above) takes db1 += sum_r dz_sum instead.
+    // dW1[:, 1:] += dz_sum^T h in the slice, coalesced; the slot k = 0 (x's
+    // column, summed per pair tile) takes db1 += sum_r dz_sum instead.
     for (int i = tid; i < H1 * F; i += NTHREADS) {
       const int j = i / F, k = i % F;
       float acc = 0.f;
@@ -432,13 +692,17 @@ integrand_bwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
         for (int r = 0; r < TR; ++r) acc += dzsum[r * H1 + j];
         part[pb[0] + j] += acc;
       } else {
-        for (int r = 0; r < TR && row0 + r < R; ++r)
-          acc = fmaf(h[(size_t)(row0 + r) * e + k - 1], dzsum[r * H1 + j], acc);
-        part[pw[0] + j * F + k] += acc;
+        for (int r = 0; r < rows; ++r) acc = fmaf(ht[r * e + k - 1], dzsum[r * H1 + j], acc);
+        part[pw[0] + i] += acc;
       }
     }
     __syncthreads();
   }
+
+  // What stayed on chip, once, into this block's slice.
+  for (int i = tid; i < n_on_chip; i += NTHREADS) part[pw[lo] + i] = sums[i];
+  if (lo < nl)
+    for (int j = tid; j < H1; j += NTHREADS) part[pw[0] + j * F] = sm[L.xsum + j];
 }
 
 // out[p] = sum over the grid's blocks, in block order, of partial[b][p].
@@ -472,6 +736,32 @@ int umnn_integrand_bwd_grid(int R) {
   return tiles < sms ? tiles : sms;
 }
 
+// The sweep's launch shape for these widths, for reports: out[0] threads per
+// block, out[1] shared bytes, out[2] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] registers per
+// thread, out[4] the first layer whose dW/db sums stay on chip. Returns a
+// CUDA error code (cudaErrorInvalidValue for widths the kernel cannot take).
+int umnn_integrand_bwd_occupancy(int K, const int* widths, int n_layers, int* out) {
+  Dims d;
+  if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d)) return cudaErrorInvalidValue;
+  const Layout L = make_layout(d, K);
+  const long long bytes = (long long)L.total * sizeof(float);
+  cudaError_t err = set_smem(integrand_bwd_kernel, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, integrand_bwd_kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integrand_bwd_kernel, NTHREADS,
+                                                        (size_t)bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = NTHREADS;
+  out[1] = (int)bytes;
+  out[2] = per_sm;
+  out[3] = attr.numRegs;
+  out[4] = L.sums_from;
+  return cudaSuccess;
+}
+
 // Launches the sweep and the partial-sum reduction on `stream`; returns
 // cudaGetLastError() after them (cudaErrorInvalidValue for widths, shared
 // memory or a grid the kernel cannot take). partial holds blocks x P floats,
@@ -484,14 +774,14 @@ int umnn_integrand_bwd(const float* x, const float* h, const float* params,
   Dims d;
   if (K < 1 || R < 1 || blocks < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d))
     return cudaErrorInvalidValue;
-  const long long bytes = (long long)make_layout(d, K).total * sizeof(float);
+  const Layout L = make_layout(d, K);
+  const long long bytes = (long long)L.total * sizeof(float);
   cudaError_t err = set_smem(integrand_bwd_kernel, bytes);
   if (err != cudaSuccess) return err;
-  int pw[MAX_LAYERS], pb[MAX_LAYERS];
-  const int P = param_offsets(d, pw, pb);
+  const int P = L.P;
   cudaStream_t st = (cudaStream_t)stream;
   integrand_bwd_kernel<<<blocks, NTHREADS, (size_t)bytes, st>>>(
-      x, h, params, nodes, ccw, g, dx, dh, S, partial, R, K, d, neg_slope);
+      x, h, params, nodes, ccw, g, dx, dh, S, partial, R, K, d, L, neg_slope);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   integrand_bwd_reduce<<<(P + 255) / 256, 256, 0, st>>>(partial, dparams, P, blocks);
