@@ -1,48 +1,73 @@
-"""The phase-clock copy of ``integrand_bwd.cu`` (``ops/bwd_phase_clock.py``).
+"""The phase-clock copies of ``integrand_bwd.cu`` and ``integrand_fwd.cu``
+(``ops/bwd_phase_clock.py``, ``ops/fwd_phase_clock.py``).
 
-It is compiled and run only on a card; here the source transformation is
-checked: one counter after every barrier of the sweep kernel, each with
-the comment that opens its phase, and the rest of the file as it was.
+They are compiled and run only on a card; here the source transformation is
+checked for both kernels: one counter after every barrier of the kernel,
+each with the comment that opens its phase, and the rest of the file as it
+was.
 """
 
 import re
 
+import pytest
+
 from umnn_tpu_torch.ops import _build
-from umnn_tpu_torch.ops.bwd_phase_clock import instrument
+from umnn_tpu_torch.ops.bwd_phase_clock import BWD_MARKERS, instrument
+from umnn_tpu_torch.ops.fwd_phase_clock import FWD_MARKERS
 
-SRC = (_build.CSRC / "integrand_bwd.cu").read_text()
+# per kernel: its source, markers, C functions, and phases its labels name
+KERNELS = {
+    "bwd": ("integrand_bwd.cu", BWD_MARKERS,
+            ("umnn_integrand_bwd_smem_bytes", "umnn_integrand_bwd_grid", "umnn_integrand_bwd("),
+            ("Forward again", "Layer 1: act[0] now holds dz1")),
+    "fwd": ("integrand_fwd.cu", FWD_MARKERS,
+            ("umnn_integrand_fwd_smem_bytes", "umnn_integrand_fwd_occupancy",
+             "umnn_integrand_fwd("),
+            ("Hidden products", "Output layer: each pair's partial sums")),
+}
 
 
-def _kernel_body(src: str) -> str:
-    return src[src.index("integrand_bwd_kernel(const float*"):
-               src.index("// out[p] = sum over the grid's blocks")]
+def _source(kernel: str) -> str:
+    return (_build.CSRC / KERNELS[kernel][0]).read_text()
 
 
-def test_one_counter_per_barrier_of_the_sweep():
-    out, labels = instrument(SRC)
-    barriers = _kernel_body(SRC).count("__syncthreads();")
+def _kernel_body(src: str, markers) -> str:
+    start = src.index(markers[0])
+    return src[start: src.index(markers[1], start)]
+
+
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_one_counter_per_barrier_of_the_sweep(kernel):
+    src, markers = _source(kernel), KERNELS[kernel][1]
+    out, labels = instrument(src, *markers)
+    barriers = _kernel_body(src, markers).count("__syncthreads();")
     assert barriers >= 5
     assert len(labels) == barriers
-    ticks = [int(i) for i in re.findall(r"__syncthreads\(\); TICK\((\d+)\);", _kernel_body(out))]
+    ticks = [int(i) for i in re.findall(r"__syncthreads\(\); TICK\((\d+)\);",
+                                        _kernel_body(out, markers))]
     assert ticks == list(range(barriers))
 
 
-def test_labels_are_the_phases_first_comments():
-    _, labels = instrument(SRC)
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_labels_are_the_phases_first_comments(kernel):
+    _, labels = instrument(_source(kernel), *KERNELS[kernel][1])
     assert all(labels), labels
-    assert any(label.startswith("Forward again") for label in labels)
-    assert any(label.startswith("Layer 1: act[0] now holds dz1") for label in labels)
+    for phase in KERNELS[kernel][3]:
+        assert any(label.startswith(phase) for label in labels), (phase, labels)
 
 
-def test_the_rest_of_the_file_is_unchanged():
-    out, _ = instrument(SRC)
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_the_rest_of_the_file_is_unchanged(kernel):
+    src, markers = _source(kernel), KERNELS[kernel][1]
+    out, _ = instrument(src, *markers)
 
-    def head(src):  # from the first namespace to the kernel
-        return src[src.index("namespace {"): src.index("integrand_bwd_kernel(const float*")]
+    def head(text):  # from the first namespace to the kernel
+        return text[text.index("namespace {"): text.index(markers[0])]
 
-    assert head(out) == head(SRC)
+    assert head(out) == head(src)
     assert "#define TICK(i)" in out[: out.index("namespace {")]
-    for name in ("umnn_integrand_bwd_smem_bytes", "umnn_integrand_bwd_grid", "umnn_integrand_bwd("):
+    for name in KERNELS[kernel][2]:
         assert name in out
     assert "int umnn_phase_clocks(unsigned long long* out, int clear)" in out
     assert "long long t_prev = clock64();" in out
+

@@ -15,191 +15,449 @@
 //
 // Bound on an H100: operations. At the MNIST block shape (R = 78,400 rows,
 // 51 nodes, widths 31-100-50-50-50-50-1) one sweep is about 101 GFLOP of
-// useful float32 work with the once-per-row first layer (125 GFLOP if the
-// first layer is counted per node), against about 10 MB of input and output:
-// 1.5 ms at the 67 TFLOP/s float32 peak, 3 us at 3.35 TB/s.
+// useful float32 work with the once-per-row first layer, against about 10 MB
+// of input and output: 1.5 ms at the 67 TFLOP/s float32 peak, 3 us at
+// 3.35 TB/s.
 //
-// What this simple design does about that bound: everything is float32 FMA on
-// the CUDA cores (no TF32, no tensor cores). A block owns TR rows. All
-// weights, the per-row first-layer part, and two activation buffers live in
-// shared memory, so device memory is touched once per input and output. The
-// TR*K (row, node) pairs run through the MLP in tiles of MT pairs; each hidden
-// layer is a shared-memory matrix product in which every thread keeps a 4x4
-// register tile (16 FMAs per two 16-byte shared loads). Each row's sum over
-// the nodes is taken in one thread, in node order: no atomics, no carry
-// between blocks, so the result is deterministic. Known waste, left to later
-// work: output widths are padded to 16 (50 -> 64), one block per SM fits the
-// shared memory, and wgmma over node-folded tiles is not used.
+// What the design does about that bound: plain float32 FMA on the CUDA cores
+// (no TF32, no tensor cores), in a persistent grid of one 256-thread block per
+// SM (8 warps, up to 255 registers each).
+//   - Each block stages the hidden weights in shared memory once, then walks
+//     row tiles of TR rows in a fixed order; each row is written by the one
+//     block that owns its tile. TR*K (row, node) pairs go through the MLP in
+//     pair tiles of MT; TR is chosen so that TR*K nearly fills a whole number
+//     of pair tiles (MNIST: 20 rows, 1,020 pairs in 4 tiles of 256).
+//   - Hidden products are shared-memory matrix products on register tiles of
+//     8 pairs x TN outputs. At MT = 256 a warp owns one column group for all
+//     256 pairs: its weight loads are broadcasts, its activation loads 16-byte
+//     rows that a quarter warp reads side by side. A layer's columns are cut
+//     into 8 groups of TN and TN - 1 with no padding (50 = 2 x 7 + 6 x 6, so
+//     each scheduler's two warps take 13 or 12 columns), each group's weights
+//     a [din][width] block, so that one 16-byte load brings 4 of its weights
+//     and a thread loads 4 k's weights in TN loads before their FMAs.
+//   - Layer 1 is built once per pair tile from ph, each thread 8 units of one
+//     pair at a time, with 16-byte loads; each pair's (row, node) once per
+//     tile.
+//   - The output layer is fused into the last hidden product's epilogue: each
+//     thread dots its columns with wout, and one thread per pair sums the
+//     column groups' partials in a fixed order, then applies ELU+1 and w_n.
+//     With one hidden layer, layer 1's build does this.
+//   - Activation buffers are sized by the widths they hold (100 and 50 wide
+//     at MNIST widths); the pair tile shrinks (256, 128, 64, 32) until the
+//     layout fits 227 KB, so hidden widths up to 128 fit (31-128-128-1 at
+//     256, 31-128-128-76-1 at 64).
+//   - Each row's sum over the nodes is taken in one thread, in node order: no
+//     atomics, no carry between blocks, so reruns are bit-identical.
+// What is left (ops/fwd_phase_clock.py, MNIST block): the products take about
+// 83% of the time and issue about one FMA every other cycle per scheduler
+// however the tiles are shaped; one block of 8 warps per SM (the weights and
+// two 256-pair buffers take 226,272 bytes at MNIST widths), five barriers per
+// pair tile, and the once-per-row first layer read from global memory (about
+// 6%).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int TR = 32;          // rows per block
-constexpr int MT = 128;         // (row, node) pairs per tile
-constexpr int NTHREADS = 512;
-constexpr int MAX_WIDTH = 128;  // hidden width
-constexpr int MAX_FIRST = 1 << 30;  // 1 + e: bounded by shared memory alone
+// Threads per block, and pairs per thread of a product's register tile.
+constexpr int NTHREADS = 256;
+constexpr int TM = 8;
+constexpr int MAX_TN = 16;       // outputs per thread in a product
+constexpr int MAX_MT = 256;      // pairs per tile, at most (NTHREADS: one thread per pair)
+constexpr int MAX_TR = 64;       // rows per row tile, at most
+constexpr int MAX_WIDTH = 128;   // hidden width
+constexpr int MAX_FIRST = 1 << 30;  // 1 + e: h and W1's h part are read from global memory
+constexpr long long SMEM_LIMIT = 232448;  // an H100 block's opt-in shared memory
+static_assert(MAX_MT <= NTHREADS && MAX_MT % TM == 0, "a thread per pair in layer 1");
 
-// Offsets into shared memory, in floats, each a multiple of 4 (16 bytes).
+// Offsets into shared memory, in floats, each a multiple of 4 (16 bytes), and
+// the tile sizes chosen for these widths and K.
 struct Layout {
-  int w1t, b1, wout, ph, xs, fw, s, ccw, buf0, buf1, total;
-  int hid_w[MAX_LAYERS], hid_b[MAX_LAYERS], ldw[MAX_LAYERS];
+  int MT, TR, npart;  // pairs per tile, rows per row tile, partial rows of the output layer
+  int w1x, b1, wout, bout, ph, ldph, xs, fw, s, ccw, part, buf[2], total;
+  // per hidden layer: weights, bias, columns with padding, and its column
+  // groups: ngroups of which the first nbig are tn wide and the rest tn - 1
+  int hid_w[MAX_LAYERS], hid_b[MAX_LAYERS], ncol[MAX_LAYERS], tn[MAX_LAYERS];
+  int ngroups[MAX_LAYERS], nbig[MAX_LAYERS];
 };
 
-__host__ __device__ inline Layout make_layout(const Dims& d, int K) {
+inline Layout layout_for(const Dims& d, int K, int MT, int TR) {
   Layout L;
-  const int H1 = d.w[1];
-  int off = 0, maxh = H1;
-  L.w1t = off;  off += round_up(d.w[0] * H1, 4);  // W1 transposed: [1+e][H1]
+  const int nl = d.n_layers, H1 = d.w[1];
+  const int ncg = NTHREADS * TM / MT;  // column groups when each thread takes one tile
+  L.MT = MT;
+  L.TR = TR;
+  int off = 0;
+  L.w1x = off;  off += round_up(H1, 4);  // W1[:, 0], x's column
   L.b1 = off;   off += round_up(H1, 4);
-  for (int l = 1; l < d.n_layers - 1; ++l) {      // hidden: W^T [din][ldw], b [ldw]
-    L.ldw[l] = round_up(d.w[l + 1], 16);
-    L.hid_w[l] = off;  off += d.w[l] * L.ldw[l];
-    L.hid_b[l] = off;  off += L.ldw[l];
-    maxh = d.w[l + 1] > maxh ? d.w[l + 1] : maxh;
+  int wout_len = H1, bufw[2] = {0, 0};
+  for (int l = 1; l < nl - 1; ++l) {  // hidden: W^T by column group, b [ncol], zero-padded
+    const int dout = d.w[l + 1];
+    int tn = (dout + ncg - 1) / ncg;
+    tn = tn < MAX_TN ? tn : MAX_TN;
+    const int ng = (dout + tn - 1) / tn, nbig = dout - ng * (tn - 1);
+    L.tn[l] = tn;
+    L.ngroups[l] = ng;
+    // groups of tn and tn - 1 columns that make up dout exactly (50: 2 x 7
+    // and 6 x 6), else ng groups of tn over padded columns
+    const bool exact = nbig > 0 && nbig <= ng;
+    L.nbig[l] = exact ? nbig : ng;
+    L.ncol[l] = exact ? dout : ng * tn;
+    L.hid_w[l] = off;  off += L.nbig[l] * round_up(d.w[l] * tn, 4) +
+                              (ng - L.nbig[l]) * round_up(d.w[l] * (tn - 1), 4);
+    L.hid_b[l] = off;  off += round_up(L.ncol[l], 4);
+    wout_len = L.ncol[l];
   }
-  L.wout = off; off += round_up(d.w[d.n_layers - 1] + 1, 4);  // output row, then its bias
-  L.ph = off;   off += TR * H1;
-  L.xs = off;   off += TR;
-  L.fw = off;   off += round_up(TR * K, 4);
-  L.s = off;    off += round_up(K, 4);
-  L.ccw = off;  off += round_up(K, 4);
-  L.buf0 = off; off += maxh * MT;  // activations, transposed: [width][MT]
-  L.buf1 = off; off += maxh * MT;
+  for (int l = 0; l < nl - 2; ++l) {  // layer l's output goes to buffer l % 2
+    const int v = d.w[l + 1];
+    bufw[l % 2] = v > bufw[l % 2] ? v : bufw[l % 2];
+  }
+  // partial sums of the output layer, one row per column group of the last
+  // product (or per thread of a pair in layer 1's build when it is the last)
+  L.npart = nl > 2 ? L.ngroups[nl - 2] : NTHREADS / MT;
+  L.wout = off;  off += round_up(wout_len, 4);  // zero-padded
+  L.bout = off;  off += 4;
+  // an odd number of 16-byte chunks: rows read side by side fall in
+  // different banks
+  L.ldph = round_up(H1, 4) / 4 % 2 ? round_up(H1, 4) : round_up(H1, 4) + 4;
+  L.ph = off;    off += round_up(TR * L.ldph, 4);
+  L.xs = off;    off += round_up(TR, 4);
+  L.fw = off;    off += round_up(TR * K, 4);
+  L.s = off;     off += round_up(K, 4);
+  L.ccw = off;   off += round_up(K, 4);
+  L.part = off;  off += L.npart * MT;
+  L.buf[0] = off;  off += bufw[0] * MT;  // activations, transposed: [width][MT]
+  L.buf[1] = off;  off += bufw[1] * MT;
   L.total = off;
   return L;
 }
 
-// out[j][m] = leaky(sum_k in[k][m] * w[k][j] + bias[j]) for j < dout, m < MT.
-// A warp computes a 32 (pairs) x 16 (outputs) tile; lane = 8 pair groups x
-// 4 output groups, each a 4x4 register tile.
-__device__ void hidden_layer(const float* __restrict__ in, float* __restrict__ out,
-                             const float* __restrict__ w, const float* __restrict__ bias,
-                             int din, int dout, int ldw, float neg_slope) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int mtiles = MT / 32;
-  const int ntiles = mtiles * ((dout + 15) / 16);
-  for (int t = warp; t < ntiles; t += NTHREADS / 32) {
-    const int m0 = (t % mtiles) * 32 + (lane & 7) * 4;
-    const int j0 = (t / mtiles) * 16 + (lane >> 3) * 4;
-    float acc[4][4] = {};
-#pragma unroll 4
-    for (int k = 0; k < din; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(in + k * MT + m0);
-      const float4 b = *reinterpret_cast<const float4*>(w + k * ldw + j0);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// The largest pair tile whose layout fits, with the row tile whose pairs
+// fill 4 pair tiles as nearly as possible (fewer rows where that does not
+// fit); past every size, the smallest layout, which the launcher refuses.
+inline Layout make_layout(const Dims& d, int K) {
+  for (int MT = MAX_MT; MT >= 32; MT /= 2) {
+    int tr0 = 4 * MT / K;
+    tr0 = tr0 < 1 ? 1 : tr0 > MAX_TR ? MAX_TR : tr0;
+    for (int TR = tr0; TR >= 1 && 2 * TR >= tr0; --TR) {
+      const Layout L = layout_for(d, K, MT, TR);
+      if ((long long)L.total * sizeof(float) <= SMEM_LIMIT) return L;
     }
+  }
+  return layout_for(d, K, 32, 1);
+}
+
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float e) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, e);
+}
+
+template <int TN>
+__device__ __forceinline__ void fma_tile(float (&acc)[TM][TN], const float4 (&a)[TM / 4],
+                                         const float (&b)[TN]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j0 + j < dout) {
-        const float bj = bias[j0 + j];
-        float4 o;
-        o.x = leaky(acc[0][j] + bj, neg_slope);
-        o.y = leaky(acc[1][j] + bj, neg_slope);
-        o.z = leaky(acc[2][j] + bj, neg_slope);
-        o.w = leaky(acc[3][j] + bj, neg_slope);
-        *reinterpret_cast<float4*>(out + (j0 + j) * MT + m0) = o;
+  for (int u = 0; u < TM / 4; ++u) {
+    const float av[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[4 * u + i][j] = fmaf(av[i], b[j], acc[4 * u + i][j]);
+  }
+}
+
+// One register tile of a hidden product: pairs pg*4 .. +3 and the same 4
+// pairs 4*(MT/TM), 8*(MT/TM), ... further on, and the TN columns from c0 of
+// column group cg, whose weights w are a block [din][TN]; out[j][m] =
+// leaky(sum_k in[k][m] w[k][j] + bias[j]). The weights of 4 k come in TN
+// 16-byte loads (one per 4 weights, not one per weight), then the 4 k's
+// FMAs. With `last`, the layer's outputs are not stored: each pair's dot
+// product of its TN outputs with wout, in column order, goes to row cg of
+// the partial sums in `out`.
+template <int TN>
+__device__ __forceinline__ void product_tile(const float* __restrict__ in,
+                                             float* __restrict__ out,
+                                             const float* __restrict__ w,
+                                             const float* __restrict__ bias,
+                                             const float* __restrict__ wout, int din, int dout,
+                                             int MT, int pg, int c0, int cg, bool last,
+                                             float neg_slope) {
+  constexpr int TA = TM / 4;  // 16-byte loads of a thread's pairs
+  const int pgn = MT / TM;
+  const float* pa = in + 4 * pg;
+  const float* pw = w;
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  int k = 0;
+  for (; k + 4 <= din; k += 4) {
+    float4 a[4][TA];
+    float4 bq[TN];  // 4 k x TN weights, k-major
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int u = 0; u < TA; ++u) a[kk][u] = ld4(pa + kk * MT + u * 4 * pgn);
+#pragma unroll
+    for (int v = 0; v < TN; ++v) bq[v] = ld4(pw + 4 * v);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float b[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 v = bq[(kk * TN + j) / 4];
+        const int e = (kk * TN + j) % 4;
+        b[j] = e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+      }
+      fma_tile<TN>(acc, a[kk], b);
+    }
+    pa += 4 * MT;
+    pw += 4 * TN;
+  }
+  for (; k < din; ++k) {
+    float4 a[TA];
+    float b[TN];
+#pragma unroll
+    for (int u = 0; u < TA; ++u) a[u] = ld4(pa + u * 4 * pgn);
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = pw[j];
+    fma_tile<TN>(acc, a, b);
+    pa += MT;
+    pw += TN;
+  }
+  if (last) {
+    // padded columns have zero weights, bias and wout: they add 0
+    float z[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) z[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const float bj = bias[c0 + j], wj = wout[c0 + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) z[i] = fmaf(leaky(acc[i][j] + bj, neg_slope), wj, z[i]);
+    }
+    float* pp = out + cg * MT + 4 * pg;
+#pragma unroll
+    for (int u = 0; u < TA; ++u)
+      st4(pp + u * 4 * pgn, z[4 * u], z[4 * u + 1], z[4 * u + 2], z[4 * u + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      if (c0 + j < dout) {
+        const float bj = bias[c0 + j];
+        float* po = out + (c0 + j) * MT + 4 * pg;
+#pragma unroll
+        for (int u = 0; u < TA; ++u)
+          st4(po + u * 4 * pgn, leaky(acc[4 * u][j] + bj, neg_slope),
+              leaky(acc[4 * u + 1][j] + bj, neg_slope), leaky(acc[4 * u + 2][j] + bj, neg_slope),
+              leaky(acc[4 * u + 3][j] + bj, neg_slope));
       }
     }
   }
 }
 
+// A hidden product over all its register tiles, at most one per thread
+// (MT/TM pair groups x at most NTHREADS*TM/MT column groups): thread t takes
+// the pairs of pg = t % (MT/TM) and column group cg = t / (MT/TM), the first
+// nbig groups TN wide, the rest TN - 1. At MT = 256 a warp owns one column
+// group, so its weight loads are broadcasts. Only TN <= MAX_TN is built.
+template <int TN>
+__device__ __forceinline__ void product(const float* in, float* out, const float* w,
+                                        const float* bias, const float* wout, int din, int dout,
+                                        int ngroups, int nbig, int MT, bool last,
+                                        float neg_slope) {
+  if constexpr (TN <= MAX_TN) {
+    const int pgn = MT / TM, t = threadIdx.x;
+    if (t < pgn * ngroups) {
+      const int pg = t % pgn, cg = t / pgn;
+      if (cg < nbig) {
+        product_tile<TN>(in, out, w + cg * round_up(din * TN, 4), bias, wout, din, dout, MT, pg,
+                         cg * TN, cg, last, neg_slope);
+      } else if constexpr (TN > 1) {
+        product_tile<TN - 1>(in, out,
+                             w + nbig * round_up(din * TN, 4) +
+                                 (cg - nbig) * round_up(din * (TN - 1), 4),
+                             bias, wout, din, dout, MT, pg, cg * (TN - 1) + nbig, cg, last,
+                             neg_slope);
+      }
+    }
+  }
+}
+
+#define UMNN_FWD_PRODUCT_CASE(TN) \
+  case TN:                        \
+    product<TN>(in, out, w, bias, wout, din, dout, ngroups, nbig, MT, last, neg_slope); \
+    break;
+
+__device__ __forceinline__ void product_tn(int tn, const float* in, float* out, const float* w,
+                                           const float* bias, const float* wout, int din,
+                                           int dout, int ngroups, int nbig, int MT,
+                                           bool last, float neg_slope) {
+  switch (tn) {
+    UMNN_FWD_PRODUCT_CASE(1)  UMNN_FWD_PRODUCT_CASE(2)  UMNN_FWD_PRODUCT_CASE(3)
+    UMNN_FWD_PRODUCT_CASE(4)  UMNN_FWD_PRODUCT_CASE(5)  UMNN_FWD_PRODUCT_CASE(6)
+    UMNN_FWD_PRODUCT_CASE(7)  UMNN_FWD_PRODUCT_CASE(8)  UMNN_FWD_PRODUCT_CASE(9)
+    UMNN_FWD_PRODUCT_CASE(10) UMNN_FWD_PRODUCT_CASE(11) UMNN_FWD_PRODUCT_CASE(12)
+    UMNN_FWD_PRODUCT_CASE(13) UMNN_FWD_PRODUCT_CASE(14) UMNN_FWD_PRODUCT_CASE(15)
+    UMNN_FWD_PRODUCT_CASE(16)
+  }
+}
+static_assert(MAX_TN <= 16, "product_tn has a case for each TN up to MAX_TN");
+
 // params: for each layer l, W_l transposed, [w[l]][w[l+1]] row-major, then
-// b_l [w[l+1]].
+// b_l [w[l+1]]. L: make_layout(d, K), computed on the host, so that the
+// kernel reads it from the constant bank of its parameters.
 __global__ void __launch_bounds__(NTHREADS, 1)
 integrand_fwd_kernel(const float* __restrict__ x, const float* __restrict__ h,
                      const float* __restrict__ params, const float* __restrict__ nodes,
-                     const float* __restrict__ ccw, float* __restrict__ out,
-                     int R, int K, Dims d, float neg_slope) {
+                     const float* __restrict__ ccw, float* __restrict__ out, int R, int K,
+                     Dims d, Layout L, float neg_slope) {
   extern __shared__ __align__(16) float sm[];
-  const Layout L = make_layout(d, K);
   const int tid = threadIdx.x;
   const int nl = d.n_layers;
   const int F = d.w[0], e = F - 1, H1 = d.w[1];
-  const int row0 = blockIdx.x * TR;
+  const int MT = L.MT, TR = L.TR, ldph = L.ldph;
 
-  // Stage the weights, zero-padded to ldw columns.
+  // Stage the weights once, hidden ones zero-padded to ncol columns; W1's h
+  // part stays in global memory (read once per row tile).
   const float* p = params;
-  for (int i = tid; i < F * H1; i += NTHREADS) sm[L.w1t + i] = p[i];
+  const float* w1h = params + H1;  // W1^T rows 1 .. e: [e][H1]
+  for (int j = tid; j < H1; j += NTHREADS) sm[L.w1x + j] = p[j];
   p += F * H1;
   for (int j = tid; j < H1; j += NTHREADS) sm[L.b1 + j] = p[j];
   p += H1;
+  int ldl = H1;  // wout's padded length
   for (int l = 1; l < nl - 1; ++l) {
-    const int din = d.w[l], dout = d.w[l + 1], ldw = L.ldw[l];
-    for (int i = tid; i < din * ldw; i += NTHREADS) {
-      const int k = i / ldw, j = i % ldw;
-      sm[L.hid_w[l] + i] = j < dout ? p[k * dout + j] : 0.f;
+    const int din = d.w[l], dout = d.w[l + 1], ncol = L.ncol[l];
+    // column group by column group, each [din][its width] from a 16-byte
+    // boundary; padded columns zero
+    const int tn = L.tn[l], nbig = L.nbig[l], big = round_up(din * tn, 4);
+    const int small = round_up(din * (tn - 1), 4);
+    for (int i = tid; i < din * ncol; i += NTHREADS) {
+      const int k = i / ncol, c = i - k * ncol;
+      const int g = c < nbig * tn ? c / tn : nbig + (c - nbig * tn) / (tn - 1);
+      const int width = g < nbig ? tn : tn - 1;
+      const int j = g < nbig ? c - g * tn : c - nbig * tn - (g - nbig) * (tn - 1);
+      const int base = g < nbig ? g * big : nbig * big + (g - nbig) * small;
+      sm[L.hid_w[l] + base + k * width + j] = c < dout ? p[k * dout + c] : 0.f;
     }
     p += dout * din;
-    for (int j = tid; j < ldw; j += NTHREADS) sm[L.hid_b[l] + j] = j < dout ? p[j] : 0.f;
+    for (int j = tid; j < ncol; j += NTHREADS) sm[L.hid_b[l] + j] = j < dout ? p[j] : 0.f;
     p += dout;
+    ldl = ncol;
   }
   const int dl = d.w[nl - 1];
-  for (int k = tid; k <= dl; k += NTHREADS) sm[L.wout + k] = p[k];
-  for (int r = tid; r < TR; r += NTHREADS) sm[L.xs + r] = row0 + r < R ? x[row0 + r] : 0.f;
+  for (int k = tid; k < ldl; k += NTHREADS) sm[L.wout + k] = k < dl ? p[k] : 0.f;
+  if (tid == 0) sm[L.bout] = p[dl];
   for (int n = tid; n < K; n += NTHREADS) {
     sm[L.s + n] = (nodes[n] + 1.f) * 0.5f;
     sm[L.ccw + n] = ccw[n];
   }
   __syncthreads();
 
-  // Node-invariant first layer, once per row: ph = h W1[:, 1:]^T + b1.
-  for (int i = tid; i < TR * H1; i += NTHREADS) {
-    const int r = i / H1, j = i % H1;
-    float acc = 0.f;
-    if (row0 + r < R) {
-      const float* hr = h + (size_t)(row0 + r) * e;
-      for (int k = 0; k < e; ++k) acc = fmaf(hr[k], sm[L.w1t + (k + 1) * H1 + j], acc);
-    }
-    sm[L.ph + i] = acc + sm[L.b1 + j];
-  }
-  __syncthreads();
+  const float* w1x = sm + L.w1x;
+  const float* wout = sm + L.wout;
+  float* ph = sm + L.ph;
+  float* xs = sm + L.xs;
+  float* fw = sm + L.fw;
+  float* part = sm + L.part;
+  const int n_tiles = (R + TR - 1) / TR;
 
-  const int P = TR * K;  // pair q = r*K + n
-  for (int p0 = 0; p0 < P; p0 += MT) {
-    float* a = sm + L.buf0;
-    float* b = sm + L.buf1;
-    for (int i = tid; i < H1 * MT; i += NTHREADS) {
-      const int j = i / MT, m = i % MT, q = p0 + m;
-      float v = 0.f;
-      if (q < P) {
-        const int r = q / K, n = q - r * K;
-        const float xs = sm[L.s + n] * sm[L.xs + r];
-        v = leaky(sm[L.ph + r * H1 + j] + xs * sm[L.w1t + j], neg_slope);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int row0 = tile * TR;
+    const int rows = min(TR, R - row0);
+    // Node-invariant first layer, once per row: ph = h W1[:, 1:]^T + b1,
+    // each thread 4 outputs at a time so that their loads overlap.
+    for (int r = tid; r < TR; r += NTHREADS) xs[r] = r < rows ? x[row0 + r] : 0.f;
+    for (int i0 = tid; i0 < TR * H1; i0 += 4 * NTHREADS) {
+      const float* hr[4];
+      const float* wc[4];
+      float acc[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = min(i0 + u * NTHREADS, TR * H1 - 1), r = i / H1;
+        hr[u] = h + (size_t)(row0 + min(r, rows - 1)) * e;
+        wc[u] = w1h + (i - r * H1);
+        acc[u] = 0.f;
       }
-      a[j * MT + m] = v;
+#pragma unroll 4
+      for (int k = 0; k < e; ++k)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] = fmaf(__ldg(hr[u] + k), __ldg(wc[u] + k * H1), acc[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * NTHREADS, r = i / H1, j = i - r * H1;
+        if (i < TR * H1) ph[r * ldph + j] = (r < rows ? acc[u] : 0.f) + sm[L.b1 + j];
+      }
     }
     __syncthreads();
-    for (int l = 1; l < nl - 1; ++l) {
-      hidden_layer(a, b, sm + L.hid_w[l], sm + L.hid_b[l], d.w[l], d.w[l + 1], L.ldw[l],
-                   neg_slope);
+
+    const int PQ = rows * K;  // pair q = r*K + n of the row tile
+    const int G = NTHREADS / MT;  // threads per pair in layer 1
+    for (int p0 = 0; p0 < PQ; p0 += MT) {
+      // Layer 1 from ph, each thread pair m = tid % MT and the groups of 8
+      // units from 8 * (tid / MT) in steps of 8 G, its loads 16 bytes wide
+      // and before its stores; with no hidden product it is the last layer,
+      // and each thread's dot product with wout goes to the partial sums.
+      // Pairs past the row tile take row 0 and x = 0: finite values that
+      // nothing reads.
+      {
+        const int m = tid % MT, q = p0 + m, j0 = tid / MT;
+        const bool ok = q < PQ;
+        const int r = ok ? q / K : 0, n = ok ? q - r * K : 0;
+        const float sx = ok ? sm[L.s + n] * xs[r] : 0.f;
+        const float* phr = ph + r * ldph;
+        if (nl == 2) {
+          float z = 0.f;
+          for (int j = j0; j < H1; j += G)
+            z = fmaf(leaky(fmaf(sx, w1x[j], phr[j]), neg_slope), wout[j], z);
+          part[j0 * MT + m] = z;
+        } else {
+          float* a0 = sm + L.buf[0] + m;
+          for (int j = 8 * j0; j < H1; j += 8 * G) {
+            if (j + 8 <= H1) {
+              const float4 w0 = ld4(w1x + j), w1 = ld4(w1x + j + 4);
+              const float4 h0 = ld4(phr + j), h1 = ld4(phr + j + 4);
+              const float v[8] = {fmaf(sx, w0.x, h0.x), fmaf(sx, w0.y, h0.y),
+                                  fmaf(sx, w0.z, h0.z), fmaf(sx, w0.w, h0.w),
+                                  fmaf(sx, w1.x, h1.x), fmaf(sx, w1.y, h1.y),
+                                  fmaf(sx, w1.z, h1.z), fmaf(sx, w1.w, h1.w)};
+#pragma unroll
+              for (int u = 0; u < 8; ++u) a0[(j + u) * MT] = leaky(v[u], neg_slope);
+            } else {
+              for (int u = j; u < H1; ++u) a0[u * MT] = leaky(fmaf(sx, w1x[u], phr[u]), neg_slope);
+            }
+          }
+        }
+      }
       __syncthreads();
-      float* t = a; a = b; b = t;
-    }
-    for (int m = tid; m < MT; m += NTHREADS) {
-      const int q = p0 + m;
-      if (q < P) {
-        float z = 0.f;
-        for (int k = 0; k < dl; ++k) z = fmaf(a[k * MT + m], sm[L.wout + k], z);
-        z += sm[L.wout + dl];
-        const float f = z > 0.f ? z + 1.f : expf(z);  // ELU + 1
-        sm[L.fw + q] = sm[L.ccw + q % K] * f;
+      // Hidden products, the last one fused with the output layer.
+      for (int l = 1; l < nl - 1; ++l) {
+        const bool last = l == nl - 2;
+        product_tn(L.tn[l], sm + L.buf[(l - 1) % 2], last ? part : sm + L.buf[l % 2],
+                   sm + L.hid_w[l], sm + L.hid_b[l], wout, d.w[l], d.w[l + 1], L.ngroups[l],
+                   L.nbig[l], MT, last, neg_slope);
+        __syncthreads();
       }
+      // Output layer: each pair's partial sums in a fixed order, ELU + 1 and
+      // its quadrature weight.
+      if (tid < MT && p0 + tid < PQ) {
+        const int m = tid, q = p0 + m, n = q - q / K * K;
+        float z = part[m];
+        for (int c = 1; c < L.npart; ++c) z += part[c * MT + m];
+        z += sm[L.bout];
+        const float f = z > 0.f ? z + 1.f : expf(z);  // ELU + 1
+        fw[q] = sm[L.ccw + n] * f;
+      }
+      if (nl == 2) __syncthreads();  // the next build writes the partial sums
     }
+    // The last pair tile's terms are in fw.
     __syncthreads();
-  }
 
-  for (int r = tid; r < TR; r += NTHREADS) {
-    if (row0 + r < R) {
+    // Each row's node sum in node order (beside the next row tile's ph).
+    for (int r = tid; r < rows; r += NTHREADS) {
       float acc = 0.f;
-      for (int n = 0; n < K; ++n) acc += sm[L.fw + r * K + n];
-      out[row0 + r] = acc * sm[L.xs + r] * 0.5f;
+      for (int n = 0; n < K; ++n) acc += fw[r * K + n];
+      out[row0 + r] = acc * x[row0 + r] * 0.5f;
     }
   }
 }
@@ -216,20 +474,57 @@ long long umnn_integrand_fwd_smem_bytes(int K, const int* widths, int n_layers) 
   return (long long)make_layout(d, K).total * sizeof(float);
 }
 
+// The sweep's launch shape for these widths, for reports: out[0] threads per
+// block, out[1] shared bytes, out[2] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] registers per
+// thread, out[4] pairs per tile, out[5] rows per row tile. Returns a CUDA
+// error code (cudaErrorInvalidValue for widths the kernel cannot take).
+int umnn_integrand_fwd_occupancy(int K, const int* widths, int n_layers, int* out) {
+  Dims d;
+  if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d)) return cudaErrorInvalidValue;
+  const Layout L = make_layout(d, K);
+  const long long bytes = (long long)L.total * sizeof(float);
+  cudaError_t err = set_smem(integrand_fwd_kernel, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, integrand_fwd_kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integrand_fwd_kernel, NTHREADS,
+                                                        (size_t)bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = NTHREADS;
+  out[1] = (int)bytes;
+  out[2] = per_sm;
+  out[3] = attr.numRegs;
+  out[4] = L.MT;
+  out[5] = L.TR;
+  return cudaSuccess;
+}
+
 // Launches on `stream` and returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for widths or shared memory the kernel cannot take).
+// The grid: as many blocks as the card holds at once, at most one per row
+// tile.
 int umnn_integrand_fwd(const float* x, const float* h, const float* params,
                        const float* nodes, const float* ccw, float* out, int R, int K,
                        const int* widths, int n_layers, float neg_slope, void* stream) {
   Dims d;
   if (K < 1 || R < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_FIRST, &d))
     return cudaErrorInvalidValue;
-  const long long bytes = (long long)make_layout(d, K).total * sizeof(float);
-  const cudaError_t err = set_smem(integrand_fwd_kernel, bytes);
+  const Layout L = make_layout(d, K);
+  const long long bytes = (long long)L.total * sizeof(float);
+  cudaError_t err = set_smem(integrand_fwd_kernel, bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integrand_fwd_kernel, NTHREADS,
+                                                        (size_t)bytes);
   if (err != cudaSuccess) return err;
-  const int grid = (R + TR - 1) / TR;
+  const long long tiles = (R + L.TR - 1) / L.TR, slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int grid = (int)(tiles < slots ? tiles : slots);
   integrand_fwd_kernel<<<grid, NTHREADS, (size_t)bytes, (cudaStream_t)stream>>>(
-      x, h, params, nodes, ccw, out, R, K, d, neg_slope);
+      x, h, params, nodes, ccw, out, R, K, d, L, neg_slope);
   return cudaGetLastError();
 }
 

@@ -313,14 +313,15 @@ def _smem_check(kernel: str, widths, K: int, device):
         # MAX_LAYERS of csrc/common.cuh, MAX_WIDTH of the .cu file
         raise ValueError(
             f"widths {list(widths)}: beyond the layer count or hidden width that "
-            f"csrc/integrand_{kernel}.cu takes"
+            f"csrc/integrand_{kernel}.cu takes; backend='torch' computes it on the card"
         )
     props = torch.cuda.get_device_properties(device)
     limit = getattr(props, "shared_memory_per_block_optin", smem)
     if smem > limit:
         raise ValueError(
             f"widths {list(widths)} with {K} nodes need {smem} bytes of shared memory "
-            f"in integrand_{kernel}; the card gives a block {limit}"
+            f"in integrand_{kernel}; the card gives a block {limit}; backend='torch' "
+            f"computes it on the card"
         )
     return lib, c_widths, ptr
 
