@@ -16,14 +16,16 @@ scipy. Phases, each printing one flushed JSON line:
            hidden layer, the widest sets 31-128-128-1 and 31-128-128-76-1,
            widths that divide none of its column groups, K = 1, 2, 21 and
            101 padded, fewer row tiles than blocks); bit-identical reruns;
-           refused widths, also a 129-wide integrand under backend="auto",
-           launching nothing, which backend="torch" computes; its launch
-           shape;
+           a 129-wide integrand, also as a flow under backend="kernel" and
+           "auto", goes to the streamed pair (one launch of integrand_fwd_wide,
+           values against the plain version and backend="torch"); a non-ELU
+           integrand raises and launches nothing; its launch shape;
 4. bwd     the backward integrand kernel, through the autograd Function and
            through its wrapper, against its plain version, at the MNIST
            block and edge cases (widths that divide none of its register
            tiles, the widest sets it takes, ragged row and pair tiles at
-           K = 51 and 101); bit-identical reruns; refused widths; its
+           K = 51 and 101); bit-identical reruns; widths it refuses go to the
+           streamed pair, and the forward with it; its
            launch shape (threads, shared bytes, registers, resident blocks
            per SM);
 5. slice   the full-width 5-block MNIST UMNN-MAF flow (random weights from a
@@ -41,7 +43,7 @@ scipy. Phases, each printing one flushed JSON line:
            65-wide layer raises, a 32-wide integrand goes to the pack-4 pair;
 8. bwd_p2  the pack-2 backward kernel, through the autograd Function and
            through its wrapper, against the float64 plain version at the
-           same cases; bit-identical reruns;
+           same cases; bit-identical reruns; its launch shape;
 9. calibration  the full-width known-entropy calibration flow (random
            weights from a seed): gradients on the kernel route against the
            Leibniz route, 5 + 5 pack-2 launches per training step and none
@@ -63,7 +65,19 @@ scipy. Phases, each printing one flushed JSON line:
            step and no other integrand kernel; then the port's toy driver
            for 6 epochs on 8gaussians and on conditionnal8gaussians, whose
            test NLL must fall;
-13. timing CUDA-event medians of whole calls and profiler device times of
+13. wide   the streamed pair (integrand_wide.cu), which takes what the
+           staged pairs refuse: values and gradients (by bwd_p2's rule,
+           through the wrapper and the autograd Function) at a 129-wide
+           integrand, the timing block (3,000 rows, 51 nodes, widths
+           31-256-256-256-256-1, two row chunks), 31-128-128-128-128-1 (past
+           227 KB in the staged forward), nine 64- and nine 24-wide layers
+           (the pack-2 and pack-4 routes past MAX_LAYERS), K = 1, K = 2 on
+           the unpacked route's eight 64-wide layers, 101 padded nodes, ReLU
+           and x = 0, each call one launch of the pair; bit-identical reruns;
+           a 129-wide flow under "auto" and "kernel" against "torch" (ll and
+           every parameter gradient, 1 + 1 launches per step); its device
+           time, bound and CUDA kernels per call at the timing block;
+14. timing CUDA-event medians of whole calls and profiler device times of
            every kernel, their plain versions, compute_bpp and a training
            step of each flow, beside the kernels' bounds; the unpacked pair
            also at the calibration block, and the pack-2 and unpacked pairs
@@ -140,6 +154,17 @@ FLAGSHIP = dict(nb_flow=2, nb_in=6, hidden_derivative=(32, 32), hidden_embedding
 FLAGSHIP_BATCH = 32
 FLAGSHIP_WIDTHS = [1 + FLAGSHIP["embedding_s"], *FLAGSHIP["hidden_derivative"], 1]
 B2048 = 2048  # scripts/pack4_ab.py's larger toy batch (e = 8): 4,096 folded rows
+# The streamed pair (csrc/integrand_wide.cu) takes what the staged pairs
+# refuse. Its timing block: the calibration block's rows and nodes (R = 3,000,
+# K = 51) through a 256-wide, 4-hidden-layer integrand, two row chunks.
+WIDE_WIDTHS = [31, 256, 256, 256, 256, 1]
+# A flow whose integrand no staged pair takes: the calibration flow's
+# dimensions and embedding, one block, one 129-wide hidden layer; a batch of
+# standard normal rows from a seed. Its training step is the streamed pair's
+# main path.
+WIDE_FLOW = dict(nb_flow=1, nb_in=6, hidden_derivative=(129,), hidden_embedding=(64, 64),
+                 embedding_s=30, nb_steps=50)
+WIDE_BATCH = 500
 NONE_LAUNCHED = {k: 0 for k in ik.LAUNCHES}
 UNPACKED = {"pack2": False, "pack4": False}  # the unpacked pair at any width
 
@@ -520,77 +545,78 @@ def phase_kernel(gen, rows, dev, nodes, ccw):
         again = ik.fused_cc_integral(ws, bs, x_main, h_main, nodes, ccw)
         first = ik.fused_cc_integral(ws, bs, x_main, h_main, nodes, ccw)
         check(bool(torch.equal(again, first)), "kernel: two runs must agree bit for bit")
-        # what the kernel cannot take raises on the card, and launches nothing
-        launched = dict(ik.LAUNCHES)
+        # what the staged pair refuses goes to the streamed pair, under
+        # "kernel" and "auto" alike (phase wide holds it against the plain
+        # versions); an integrand no pair takes raises and launches nothing
         ws3, bs3, h3 = integrand_inputs(gen, [31, 129, 1], 64, dev)
         small = UMNNMAFFlow(nb_flow=1, nb_in=4, hidden_derivative=(8,), hidden_embedding=(8,),
                             embedding_s=2, act_func="Sigmoid", backend="auto", seed=0)
         wide = {b: UMNNMAFFlow(nb_flow=1, nb_in=4, hidden_derivative=(129,), hidden_embedding=(8,),
-                               embedding_s=2, backend=b, seed=0) for b in ("auto", "torch")}
-        refused = {
+                               embedding_s=2, backend=b, seed=0)
+                for b in ("kernel", "auto", "torch")}
+        routed = {
             "hidden_width_129": lambda: ik.fused_cc_integral(ws3, bs3, x_main[:64], h3, nodes, ccw),
-            "hidden_width_129_on_auto": lambda: wide["auto"].compute_ll(rows[:8, :4]),
-            "not_elu_on_auto": lambda: small.compute_ll(rows[:2, :4]),
+            "hidden_width_129_on_kernel": lambda: wide["kernel"].compute_ll(rows[:8, :4])[0],
+            "hidden_width_129_on_auto": lambda: wide["auto"].compute_ll(rows[:8, :4])[0],
         }
+        want_routed = {
+            "hidden_width_129": ik.fused_cc_integral_plain(ws3, bs3, x_main[:64], h3, nodes, ccw),
+            "hidden_width_129_on_kernel": wide["torch"].compute_ll(rows[:8, :4])[0],
+        }
+        want_routed["hidden_width_129_on_auto"] = want_routed["hidden_width_129_on_kernel"]
+        routed_errs = {}
+        for case, fn in routed.items():
+            before = dict(ik.LAUNCHES)
+            got = fn()
+            torch.cuda.synchronize()
+            check(launched_since(before) == {"integrand_fwd_wide": 1},
+                  f"kernel {case}: launched {launched_since(before)}")
+            tol = KERNEL_TOL if case == "hidden_width_129" else SLICE_TOL
+            routed_errs[case] = compare(got, want_routed[case], tol, f"kernel {case}")
+        launched = dict(ik.LAUNCHES)
+        refused = {"not_elu_on_auto": lambda: small.compute_ll(rows[:2, :4])}
         for case, fn in refused.items():
             try:
                 fn()
-            except ValueError as err:
-                # a width the kernels refuse names the route that takes it
-                check("width" not in case or "backend='torch'" in str(err), f"kernel {case}: {err}")
+            except ValueError:
                 continue
             raise AssertionError(f"kernel: {case} must raise, not compute")
         check(ik.LAUNCHES == launched, "kernel: a refused call must launch nothing")
-        ll = wide["torch"].compute_ll(rows[:8, :4])[0]
-        check(ll.shape == (8,) and bool(torch.isfinite(ll).all()),
-              "kernel: backend='torch' must compute the 129-wide integrand")
-    shape = {f"mnist_{k}_nodes": fwd_launch_shape(WIDTHS, k) for k in (K, p101[0].numel())}
-    shape.update({f"widths_{'_'.join(map(str, w))}": fwd_launch_shape(list(w), K) for w in edge})
+    shape = {f"mnist_{k}_nodes": launch_shape("fwd", WIDTHS, k) for k in (K, p101[0].numel())}
+    shape.update({f"widths_{'_'.join(map(str, w))}": launch_shape("fwd", list(w), K) for w in edge})
     report("kernel", rows=x_main.numel(), nodes=K, widths=WIDTHS, tol=KERNEL_TOL, cases=errs,
-           refused=list(refused), launch_shape=shape)
+           to_the_streamed_pair=routed_errs, refused=list(refused), launch_shape=shape)
     return (ws, bs, x_main, h_main), errs
 
 
-def fwd_launch_shape(widths: list, K: int) -> dict:
-    """integrand_fwd.cu's launch shape at these widths and node count, from
-    its own C helper: threads per block, shared bytes, resident blocks and
-    warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
-    per thread, pairs per tile and rows per row tile."""
+# What each kernel's occupancy helper reports past its first four values.
+LAUNCH_SHAPE_KEYS = {
+    "fwd": ("pairs_per_tile", "rows_per_row_tile"),
+    "bwd": ("dw_sums_on_chip_from_layer",),
+    "bwd_p2": ("pairs_per_tile", "rows_per_row_tile"),
+}
+
+
+def launch_shape(kernel: str, widths: list, K: int) -> dict:
+    """A staged kernel's launch shape at these widths and node count, from
+    its own C helper ``umnn_integrand_{kernel}_occupancy``: threads per
+    block, shared bytes, resident blocks and warps per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
+    then LAUNCH_SHAPE_KEYS[kernel]."""
     import ctypes
 
-    fn = _build.load_library().umnn_integrand_fwd_occupancy
+    keys = LAUNCH_SHAPE_KEYS[kernel]
+    fn = getattr(_build.load_library(), f"umnn_integrand_{kernel}_occupancy")
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     c_widths = (ctypes.c_int * len(widths))(*widths)
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * (4 + len(keys)))()
     rc = fn(K, ctypes.cast(c_widths, ctypes.c_void_p), len(widths) - 1,
             ctypes.cast(out, ctypes.c_void_p))
-    check(rc == 0, f"umnn_integrand_fwd_occupancy {widths} K={K}: error {rc}")
-    threads, smem, per_sm, regs, mt, tr = list(out)
+    check(rc == 0, f"umnn_integrand_{kernel}_occupancy {widths} K={K}: error {rc}")
+    threads, smem, per_sm, regs, *rest = list(out)
     return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": per_sm,
-            "warps_per_sm": per_sm * threads // 32, "registers": regs, "pairs_per_tile": mt,
-            "rows_per_row_tile": tr}
-
-
-def bwd_launch_shape(widths: list, K: int) -> dict:
-    """integrand_bwd.cu's launch shape at these widths and node count, from
-    its own C helper: threads per block, shared bytes, resident blocks and
-    warps per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers
-    per thread, and the first layer whose dW/db sums stay on chip."""
-    import ctypes
-
-    fn = _build.load_library().umnn_integrand_bwd_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    c_widths = (ctypes.c_int * len(widths))(*widths)
-    out = (ctypes.c_int * 5)()
-    rc = fn(K, ctypes.cast(c_widths, ctypes.c_void_p), len(widths) - 1,
-            ctypes.cast(out, ctypes.c_void_p))
-    check(rc == 0, f"umnn_integrand_bwd_occupancy {widths} K={K}: error {rc}")
-    threads, smem, per_sm, regs, sums_from = list(out)
-    return {"threads": threads, "smem_bytes": smem, "blocks_per_sm": per_sm,
-            "warps_per_sm": per_sm * threads // 32, "registers": regs,
-            "dw_sums_on_chip_from_layer": sums_from}
+            "warps_per_sm": per_sm * threads // 32, "registers": regs, **dict(zip(keys, rest))}
 
 
 def phase_bwd(gen, dev, nodes, ccw, block):
@@ -650,36 +676,40 @@ def phase_bwd(gen, dev, nodes, ccw, block):
     check(all(torch.equal(a, b) for a, b in zip(first[0] + first[1] + list(first[2:]),
                                                  again[0] + again[1] + list(again[2:]))),
           "bwd: two runs must agree bit for bit")
-    # widths the backward cannot take raise before any launch, also those
-    # whose forward alone would fit (eight 64-wide layers: 189 KB forward,
-    # 246 KB backward)
-    launched = dict(ik.LAUNCHES)
+    # widths the staged backward refuses go to the streamed pair, also those
+    # whose forward alone fits (eight 64-wide layers: 180 KB forward, 246 KB
+    # backward): the backward, and the forward with it
     ws3, bs3, h3 = integrand_inputs(gen, [31, 129, 1], 64, dev)
     ws4, bs4, h4 = integrand_inputs(gen, [31] + [64] * 7 + [1], 64, dev)
     x64, g64 = x_main[:64], g_main[:64]
-    refused = {
-        "hidden_width_129": lambda: ik.fused_cc_integral_bwd(ws3, bs3, x64, h3, nodes, ccw, g64),
-        "bwd_smem_eight_64_layers": lambda: bwd_through_autograd(ws4, bs4, x64, h4, nodes, ccw, g64, 0.01),
+    routed = {
+        "hidden_width_129": (lambda: ik.fused_cc_integral_bwd(ws3, bs3, x64, h3, nodes, ccw, g64),
+                             {"integrand_bwd_wide": 1}),
+        "bwd_smem_eight_64_layers": (
+            lambda: bwd_through_autograd(ws4, bs4, x64, h4, nodes, ccw, g64, 0.01, **UNPACKED),
+            {"integrand_fwd_wide": 1, "integrand_bwd_wide": 1}),
     }
-    for case, fn in refused.items():
-        try:
-            fn()
-        except ValueError:
-            continue
-        raise AssertionError(f"bwd: {case} must raise, not compute")
-    check(ik.LAUNCHES == launched, "bwd: a refused call must launch nothing")
-    with torch.inference_mode():  # the forward alone takes the eight 64-wide layers
-        ik.fused_cc_integral(ws4, bs4, x64, h4, nodes, ccw)
-    shape = {f"mnist_{k}_nodes": bwd_launch_shape(WIDTHS, k)
+    for case, (fn, want) in routed.items():
+        before = dict(ik.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        check(launched_since(before) == want, f"bwd {case}: launched {launched_since(before)}")
+        check(all(bool(torch.isfinite(t).all()) for t in out[0] + out[1] + list(out[2:])),
+              f"bwd {case}: non-finite values")
+    with torch.inference_mode():  # a forward alone too: a flow's values never change pair
+        before = dict(ik.LAUNCHES)
+        ik.fused_cc_integral(ws4, bs4, x64, h4, nodes, ccw, **UNPACKED)
+        check(launched_since(before) == {"integrand_fwd_wide": 1},
+              f"bwd: the forward alone launched {launched_since(before)}")
+    shape = {f"mnist_{k}_nodes": launch_shape("bwd", WIDTHS, k)
              for k in (nodes.numel(), p101[0].numel())}
-    shape.update({f"widths_{'_'.join(map(str, w))}": bwd_launch_shape(list(w), nodes.numel())
+    shape.update({f"widths_{'_'.join(map(str, w))}": launch_shape("bwd", list(w), nodes.numel())
                   for w in ((31, 128, 128, 1), (31, 128, 128, 76, 1))})
     report("bwd", rows=R, nodes=nodes.numel(), widths=WIDTHS, launch_shape=shape,
            reference="plain version in float64",
            tol={"row_scale": BWD_ROW_SCALE, "param_scale": BWD_PARAM_SCALE,
                 "plain_factor": BWD_PLAIN_FACTOR},
-           cases=errs, cases_via_autograd=auto_errs,
-           refused=list(refused))
+           cases=errs, cases_via_autograd=auto_errs, to_the_streamed_pair=list(routed))
     return g_main, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}
 
 
@@ -910,12 +940,16 @@ def phase_bwd_p2(gen, dev, calib):
     check(all(torch.equal(a, b) for a, b in zip(first[0] + first[1] + list(first[2:]),
                                                  again[0] + again[1] + list(again[2:]))),
           "bwd_p2: two runs must agree bit for bit")
+    shape = {"calibration_block": launch_shape("bwd_p2", CALIB_WIDTHS, nodes.numel()),
+             "padded_101_nodes": launch_shape("bwd_p2", CALIB_WIDTHS, 101),
+             "widths_64_64_64_1": launch_shape("bwd_p2", [64, 64, 64, 1], nodes.numel())}
     report("bwd_p2", rows=x_main.numel(), nodes=nodes.numel(), widths=CALIB_WIDTHS,
+           launch_shape=shape,
            reference="plain version in float64 on the kernel's sides of each LeakyReLU",
            tol={"row_scale": BWD_ROW_SCALE, "param_scale": BWD_PARAM_SCALE,
                 "plain_factor": BWD_PLAIN_FACTOR},
            cases=errs, cases_via_autograd=auto_errs, kinks=kinks)
-    return g_main, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}
+    return g_main, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}, shape
 
 
 def phase_calibration(dev):
@@ -1154,6 +1188,157 @@ def phase_toy(dev):
     return flow, step_k, step_p, x_toy, launches
 
 
+def wide_device_ms(fn, n: int = 5) -> tuple:
+    """Device time per call of the streamed pair's kernels (every
+    ``integrand_wide_*`` launch) and their number per call, from a
+    torch.profiler trace of ``n`` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in _device_events(prof) if "integrand_wide_" in e.key]
+    check(bool(hits), "profiler: no launch of the streamed pair")
+    return (sum(e.device_time_total for e in hits) / n / 1e3, sum(e.count for e in hits) / n)
+
+
+def phase_wide(gen, dev, calib, name):
+    """The streamed pair, integrand_fwd_wide and integrand_bwd_wide, on what
+    the staged pairs refuse, under backend "auto" (and "kernel" for the
+    flow): values against the plain version within KERNEL_TOL, gradients
+    through the wrapper and through the autograd Function by bwd_p2's rule
+    (float64 on the kernel's sides of each LeakyReLU kink; the pair's
+    forward arithmetic is the one kernel_branches models), each call one
+    launch of the pair and nothing else; reruns bit-identical; the 129-wide
+    flow's ll and parameter gradients against backend="torch" (the main
+    path, counted); its device time at the timing block beside the bound."""
+    t0 = time.perf_counter()
+    x_cal = calib[2]
+    n51 = cc_tensors(CALIB["nb_steps"], dev)
+    n1 = (torch.tensor([0.3], device=dev), torch.tensor([2.0], device=dev))
+    sets = {
+        # widths, rows, nodes, neg_slope, route flags
+        "widths_31_129_1": ([31, 129, 1], 64, n51, 0.01, {}),
+        "timing_block": (WIDE_WIDTHS, x_cal.numel(), n51, 0.01, {}),
+        # past 227 KB of shared memory in the staged forward
+        "widths_31_128_128_128_128_1": ([31, 128, 128, 128, 128, 1], 1000, n51, 0.01, {}),
+        # past MAX_LAYERS on the pack-2 and the pack-4 route
+        "nine_64_wide_layers": ([31] + [64] * 8 + [1], 1000, n51, 0.01, {}),
+        "nine_24_wide_layers": ([11] + [24] * 8 + [1], 1000, cc_tensors(16, dev), 0.01, {}),
+        # K = 1 and 2: no staged backward refuses a set at these K alone (the
+        # layouts' own functions, searched on the host), so a 129-wide set
+        # and the eight 64-wide layers of the unpacked route (246 KB)
+        "widths_31_129_1_nodes_1": ([31, 129, 1], 1000, n1, 0.01, {}),
+        "eight_64_wide_layers_unpacked_nodes_2": ([31] + [64] * 7 + [1], 1000, cc_tensors(1, dev),
+                                                  0.01, UNPACKED),
+        "padded_101_nodes": ([31, 129, 1], 1000, padded_cc_quadrature(50, 100, dev), 0.01, {}),
+        "relu_neg_slope_0": ([31, 200, 37, 1], 1000, n51, 0.0, {}),
+        "x_zero": ([31, 129, 1], 1000, n51, 0.01, {}),
+    }
+    errs, bwd_errs, auto_errs, kinks = {}, {}, {}, {}
+    blocks = {}
+    for case, (widths, rows, (nodes, ccw), slope, kw) in sets.items():
+        ws, bs, h = integrand_inputs(gen, widths, rows, dev)
+        x = torch.zeros(rows, device=dev) if case == "x_zero" else x_cal[:rows]
+        g = torch.randn(rows, generator=gen).to(dev)
+        with torch.inference_mode():
+            before = dict(ik.LAUNCHES)
+            got = ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, neg_slope=slope, **kw)
+            torch.cuda.synchronize()
+            check(launched_since(before) == {"integrand_fwd_wide": 1},
+                  f"wide {case}: launched {launched_since(before)}")
+            want = ik.fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, neg_slope=slope)
+            errs[case] = compare(got, want, KERNEL_TOL, f"wide {case}")
+            if case == "x_zero":
+                check(bool((got == 0).all()), "wide: x=0 must give z=0")
+        args = (ws, bs, x, h, nodes, ccw, g, slope)
+        pos, items, n_rows = kernel_branches(ws, bs, x, h, nodes, slope)
+        want = bwd_plain64(*args, pos=pos)
+        want64 = bwd_plain64(*args)
+        plain = ik.fused_cc_integral_bwd_plain(*args)
+        before = dict(ik.LAUNCHES)
+        got = ik.fused_cc_integral_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_bwd_wide": 1},
+              f"wide {case} backward: launched {launched_since(before)}")
+        bwd_errs[case] = worst(compare_bwd(got, plain, want, f"wide {case}", want64))
+        kinks[case] = {"items_on_other_side": items, "rows_holding_one": n_rows}
+        before = dict(ik.LAUNCHES)
+        auto = bwd_through_autograd(*args, **kw)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_fwd_wide": 1, "integrand_bwd_wide": 1},
+              f"wide {case} via autograd: launched {launched_since(before)}")
+        auto_errs[case] = worst(compare_bwd(auto, plain[:4], want[:4], f"wide {case} via autograd",
+                                            want64[:4]))
+        if case == "x_zero":
+            check(all(bool((d == 0).all()) for d in got[0]), "wide: x=0 must give dW=0")
+        if case == "timing_block":
+            blocks[case] = args
+        del want, want64, plain, got, auto, pos
+    # two runs agree bit for bit: slices of each dW added in order, chunks in order
+    ws, bs, x, h, nodes, ccw, g, _ = blocks["timing_block"]
+    with torch.inference_mode():
+        first = ik.fused_cc_integral(ws, bs, x, h, nodes, ccw)
+        check(bool(torch.equal(first, ik.fused_cc_integral(ws, bs, x, h, nodes, ccw))),
+              "wide: two forward runs must agree bit for bit")
+    first = ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, g)
+    again = ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, g)
+    check(all(torch.equal(a, b) for a, b in zip(first[0] + first[1] + list(first[2:]),
+                                                 again[0] + again[1] + list(again[2:]))),
+          "wide: two backward runs must agree bit for bit")
+    chunks = len(ik._wide_chunks(x.numel(), nodes.numel(), WIDE_WIDTHS))
+
+    # the main path: the 129-wide flow's ll and gradients on the kernel
+    # route against the Leibniz route, under "auto" and "kernel"
+    x0 = torch.as_tensor(np.random.RandomState(5).randn(WIDE_BATCH, WIDE_FLOW["nb_in"])
+                         .astype(np.float32), device=dev)
+    plain_flow = UMNNMAFFlow(**WIDE_FLOW, backend="torch", seed=0)
+    flows = {}
+    for backend in ("auto", "kernel"):
+        flow = UMNNMAFFlow(**WIDE_FLOW, backend=backend, seed=0)
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        loss_err, gap = route_gaps(flow, plain_flow, f"wide flow {backend}", x0)
+        torch.cuda.synchronize()
+        launches = dict(ik.LAUNCHES)
+        n = WIDE_FLOW["nb_flow"]
+        want = {**NONE_LAUNCHED, "integrand_fwd_wide": n, "integrand_bwd_wide": n}
+        check(launches == want, f"wide flow {backend}: launches {launches}, want {want}")
+        with torch.inference_mode():
+            ll = compare(flow.compute_ll(x0)[0], plain_flow.compute_ll(x0)[0], SLICE_TOL,
+                         f"wide flow {backend} ll")
+        flows[backend] = {"launches": launches, "loss": loss_err, "ll": ll, **gap}
+        plain_flow.zero_grad()
+
+    # timing at the timing block
+    R, K = x.numel(), nodes.numel()
+    t = {"rows": R, "nodes": K, "widths": WIDE_WIDTHS, "row_chunks": chunks}
+    with torch.inference_mode():
+        fwd = lambda: ik.fused_cc_integral(ws, bs, x, h, nodes, ccw)  # noqa: E731
+        t["fwd_ms"] = median_ms(fwd, n=5, warmup=1)
+        t["fwd_device_ms"], t["fwd_kernels_per_call"] = wide_device_ms(fwd)
+        t["fwd_plain_ms"] = median_ms(
+            lambda: ik.fused_cc_integral_plain(ws, bs, x, h, nodes, ccw), n=5, warmup=1)
+    bwd = lambda: ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, g)  # noqa: E731
+    t["bwd_ms"] = median_ms(bwd, n=5, warmup=1)
+    t["bwd_device_ms"], t["bwd_kernels_per_call"] = wide_device_ms(bwd)
+    t["bwd_plain_ms"] = median_ms(
+        lambda: ik.fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g), n=5, warmup=1)
+    t["fwd_bound"] = bound(kernel_flops(WIDE_WIDTHS, R, K), kernel_bytes(WIDE_WIDTHS, R, K), name)
+    t["bwd_bound"] = bound(bwd_kernel_flops(WIDE_WIDTHS, R, K), bwd_kernel_bytes(WIDE_WIDTHS, R, K),
+                           name)
+    t["fwd_device_bound_share"] = t["fwd_bound"]["bound_ms"] / t["fwd_device_ms"]
+    t["bwd_device_bound_share"] = t["bwd_bound"]["bound_ms"] / t["bwd_device_ms"]
+    report("wide", tol=KERNEL_TOL, cases=errs, cases_backward=bwd_errs,
+           cases_via_autograd=auto_errs, kinks=kinks,
+           reference="plain version in float64 on the kernel's sides of each LeakyReLU",
+           flow=flows, timing=t, phase_seconds=time.perf_counter() - t0)
+    return (errs, {**bwd_errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}},
+            flows["auto"]["launches"], t)
+
+
+
 def time_pack4(cases, g_all, flow, step_k, step_p, x_toy, name: str) -> tuple:
     """The pack-4 pair at the toy block (R = 512) and the 4,096-row block,
     beside the pack-2 and unpacked pairs on the same inputs and the plain
@@ -1235,11 +1420,12 @@ def main() -> None:
     step_k, step_p, launches, peak_bytes = phase_train(flow, plain, batches)
     calib = calib_block(gen, dev)
     fwd_p2_errs = phase_kernel_p2(gen, dev, calib)
-    g_calib, bwd_p2_errs = phase_bwd_p2(gen, dev, calib)
+    g_calib, bwd_p2_errs, bwd_p2_shape = phase_bwd_p2(gen, dev, calib)
     calib_k, calib_p, calib_x, calib_launches = phase_calibration(dev)
     p4c, fwd_p4_errs = phase_kernel_p4(gen, dev)
     g_p4, bwd_p4_errs = phase_bwd_p4(gen, dev, p4c)
     toy_flow, toy_k, toy_p, toy_x, toy_launches = phase_toy(dev)
+    wide_fwd_errs, wide_bwd_errs, wide_launches, wide_t = phase_wide(gen, dev, calib, name)
 
     # --- timing -----------------------------------------------------------
     # ``*_ms`` from CUDA events around whole calls (the wrapper's host work
@@ -1297,11 +1483,11 @@ def main() -> None:
            fwd_plain_ms=fwd_plain_ms, fwd_bound=fwd_bound,
            bwd_kernel_ms=bwd_ms, bwd_kernel_device_ms=bwd_device_ms, bwd_plain_ms=bwd_plain_ms,
            fwd_device_bound_share=fwd_bound["bound_ms"] / fwd_device_ms,
-           fwd_launch_shape=fwd_launch_shape(WIDTHS, K),
+           fwd_launch_shape=launch_shape("fwd", WIDTHS, K),
            fwd_device_ms_against_acceptance={"device_ms": fwd_device_ms, "limit_ms": FWD_ACCEPT_MS,
                                              "within": fwd_device_ms <= FWD_ACCEPT_MS},
            bwd_bound=bwd_bound, bwd_device_bound_share=bwd_bound["bound_ms"] / bwd_device_ms,
-           bwd_launch_shape=bwd_launch_shape(WIDTHS, K),
+           bwd_launch_shape=launch_shape("bwd", WIDTHS, K),
            compute_bpp_ms=bpp_ms, compute_bpp_plain_ms=bpp_plain_ms,
            train_step_ms=train_ms, train_step_plain_ms=train_plain_ms,
            train_step_peak_mem_bytes=peak_bytes,
@@ -1315,21 +1501,28 @@ def main() -> None:
            bwd_p2_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_ms"] / 1e9,
            fwd_p2_device_tflops=fwd_p2_bound["bound_flop"] / calib_t["fwd_p2_device_ms"] / 1e9,
            bwd_p2_device_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_device_ms"] / 1e9,
+           bwd_p2_device_bound_share=bwd_p2_bound["bound_ms"] / calib_t["bwd_p2_device_ms"],
+           bwd_p2_launch_shape=bwd_p2_shape["calibration_block"],
            calib_train_step_profile=calib_profile, pack4_ab=p4_t, toy=toy_t,
            toy_train_step_profile=toy_profile)
 
     # ``ms`` (and its alias ``kernel_ms``) is a CUDA-event median of whole
     # wrapper calls, as in every earlier run; ``device_ms`` the kernel alone.
-    def entry(kernel, tpu_kernel, line, errs, ms, dev_ms, plain_ms, b, n_launched):
+    def entry(kernel, tpu_kernel, line, errs, ms, dev_ms, plain_ms, b, n_launched,
+              source=None):
+        # the streamed pair's entries name its file and every kernel of it
+        source = source or f"{kernel}.cu"
+        kernels = ([k for k in ptxas if k.startswith("integrand_wide_")]
+                   if source == "integrand_wide.cu" else [f"{kernel}_kernel"])
         return {
-            "name": kernel, "route": "cuda", "source": f"umnn_tpu_torch/csrc/{kernel}.cu",
+            "name": kernel, "route": "cuda", "source": f"umnn_tpu_torch/csrc/{source}",
             "replaces": f"umnn_tpu/ops/integrand_kernel.py:{line}", "tpu_kernel": tpu_kernel,
             "launches": n_launched,
             "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
             "tol_used": max(e["tol_used"] for e in errs.values()),
             "ms": ms, "kernel_ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
-            "ptxas": ptxas[f"{kernel}_kernel"],
+            "ptxas": ptxas[kernels[0]] if len(kernels) == 1 else {k: ptxas[k] for k in kernels},
         }
 
     toy_block = p4_t["toy_block"]
@@ -1350,6 +1543,14 @@ def main() -> None:
         entry("integrand_bwd_p4", "_bwd_kernel_pn", 573, bwd_p4_errs,
               toy_block["bwd_p4_ms"], toy_block["bwd_p4_device_ms"], toy_block["bwd_plain_ms"],
               toy_block["bwd_bound"], toy_launches["integrand_bwd_p4"]),
+        # the port of _fwd_kernel and _bwd_kernel at the widths the staged
+        # pairs refuse
+        entry("integrand_fwd_wide", "_fwd_kernel", 106, wide_fwd_errs, wide_t["fwd_ms"],
+              wide_t["fwd_device_ms"], wide_t["fwd_plain_ms"], wide_t["fwd_bound"],
+              wide_launches["integrand_fwd_wide"], "integrand_wide.cu"),
+        entry("integrand_bwd_wide", "_bwd_kernel", 156, wide_bwd_errs, wide_t["bwd_ms"],
+              wide_t["bwd_device_ms"], wide_t["bwd_plain_ms"], wide_t["bwd_bound"],
+              wide_launches["integrand_bwd_wide"], "integrand_wide.cu"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total {time.perf_counter() - T0:.1f} s", flush=True)

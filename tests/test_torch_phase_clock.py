@@ -1,8 +1,9 @@
-"""The phase-clock copies of ``integrand_bwd.cu`` and ``integrand_fwd.cu``
-(``ops/bwd_phase_clock.py``, ``ops/fwd_phase_clock.py``).
+"""The phase-clock copies of ``integrand_bwd.cu``, ``integrand_bwd_p2.cu``
+and ``integrand_fwd.cu`` (``ops/bwd_phase_clock.py``, with ``--kernel bwd``
+and ``--kernel bwd_p2``, and ``ops/fwd_phase_clock.py``).
 
 They are compiled and run only on a card; here the source transformation is
-checked for both kernels: one counter after every barrier of the kernel,
+checked for the three kernels: one counter after every barrier of the kernel,
 each with the comment that opens its phase, and the rest of the file as it
 was.
 """
@@ -12,7 +13,8 @@ import re
 import pytest
 
 from umnn_tpu_torch.ops import _build
-from umnn_tpu_torch.ops.bwd_phase_clock import BWD_MARKERS, instrument
+from umnn_tpu_torch.ops.bwd_phase_clock import BWD_MARKERS, BWD_P2_MARKERS, instrument
+from umnn_tpu_torch.ops.bwd_phase_clock import KERNELS as CLOCKED
 from umnn_tpu_torch.ops.fwd_phase_clock import FWD_MARKERS
 
 # per kernel: its source, markers, C functions, and phases its labels name
@@ -20,6 +22,10 @@ KERNELS = {
     "bwd": ("integrand_bwd.cu", BWD_MARKERS,
             ("umnn_integrand_bwd_smem_bytes", "umnn_integrand_bwd_grid", "umnn_integrand_bwd("),
             ("Forward again", "Layer 1: act[0] now holds dz1")),
+    "bwd_p2": ("integrand_bwd_p2.cu", BWD_P2_MARKERS,
+               ("umnn_integrand_bwd_p2_smem_bytes", "umnn_integrand_bwd_p2_grid",
+                "umnn_integrand_bwd_p2("),
+               ("Forward again", "Layer 1: act[0] now holds dz1")),
     "fwd": ("integrand_fwd.cu", FWD_MARKERS,
             ("umnn_integrand_fwd_smem_bytes", "umnn_integrand_fwd_occupancy",
              "umnn_integrand_fwd("),
@@ -71,3 +77,8 @@ def test_the_rest_of_the_file_is_unchanged(kernel):
     assert "int umnn_phase_clocks(unsigned long long* out, int clear)" in out
     assert "long long t_prev = clock64();" in out
 
+
+
+@pytest.mark.parametrize("kernel", ["bwd", "bwd_p2"])
+def test_the_clock_script_names_each_backward_by_its_file(kernel):
+    assert CLOCKED[kernel][:2] == KERNELS[kernel][:2]

@@ -20,10 +20,10 @@ quadrature with the Leibniz-rule backward; ``"auto"`` takes the kernel on
 CUDA and the plain path on CPU. Gradients reach every parameter on both
 routes; the scaling is a buffer and gets none, as JAX's ``stop_gradient``
 makes it (`:235-237,267,363`).
-On the kernel route, under ``"auto"`` on the card too, an integrand the
-kernels cannot take (an output other than ELU+1, no hidden layer, widths or
-a shared-memory size their C helpers refuse) raises before any launch; only
-``"torch"`` runs it on the card.
+On the kernel route, under ``"auto"`` on the card too, an integrand whose
+widths a kernel pair refuses goes to the streamed pair; one no kernel
+computes (an output other than ELU+1, no hidden layer) raises before any
+launch, and only ``"torch"`` runs it on the card.
 """
 
 from __future__ import annotations

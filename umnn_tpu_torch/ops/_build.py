@@ -51,6 +51,9 @@ SIGNATURES = {
     "umnn_integrand_bwd_p4": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_bwd_p4_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
     "umnn_integrand_bwd_p4_grid": ([_I, _I, _P, _I], _I),
+    "umnn_integrand_fwd_wide": ([_P] * 6 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
+    "umnn_integrand_bwd_wide": ([_P] * 10 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
+    "umnn_integrand_wide_scratch_floats": ([_I, _I, _P, _I], ctypes.c_longlong),
     "umnn_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,19 +1,25 @@
-"""Where the time of ``csrc/integrand_bwd.cu`` goes, phase by phase.
+"""Where the time of a backward kernel goes, phase by phase.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc::
 
-    python -m umnn_tpu_torch.ops.bwd_phase_clock [--rows 78400] [--calls 5]
+    python -m umnn_tpu_torch.ops.bwd_phase_clock [--kernel bwd|bwd_p2]
+        [--rows R] [--calls 5] [--source FILE]
 
-It compiles a copy of the backward kernel in which thread 0 of every block
-adds the ``clock64()`` cycles between consecutive ``__syncthreads()`` to one
-counter per barrier, runs the copy on the MNIST block (random weights and
-inputs from a seed, widths 31-100-50-50-50-50-1, 51 nodes), and prints the
-cycles per SM and call spent before each barrier (here one block per SM),
-with the first comment of its phase, and the call time with the clocks in
-(a little above ``chip_smoke.py``'s device time: thread 0 adds to the
-counters). ptxas's line for the instrumented kernel comes first (its
-registers can differ by one or two from the library's build). Nothing here
-runs at import. ``ops/fwd_phase_clock.py`` does the same for the forward.
+It compiles a copy of the backward kernel (``--kernel bwd``:
+``csrc/integrand_bwd.cu`` on the MNIST block, widths 31-100-50-50-50-50-1;
+``--kernel bwd_p2``: ``csrc/integrand_bwd_p2.cu`` on the calibration block,
+widths 31-50-50-50-50-1, 3,000 rows; both 51 nodes, random weights and
+inputs from a seed; ``--source``: another version of the file, e.g. a parent
+commit's, with the same C interface) in which thread 0 of every block adds
+the ``clock64()`` cycles between consecutive ``__syncthreads()`` to one
+counter per barrier, checks its dx against the plain version, and prints the
+cycles per SM and call spent before each barrier (all blocks' counts over
+the card's SMs; where two blocks share an SM both are counted), with the
+first comment of its phase, and the call time with the clocks in (a little
+above ``chip_smoke.py``'s device time: thread 0 adds to the counters).
+ptxas's line for the instrumented kernel comes first (its registers can
+differ by one or two from the library's build). Nothing here runs at import.
+``ops/fwd_phase_clock.py`` does the same for the forward.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import ctypes
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -32,6 +39,13 @@ WIDTHS = [31, 100, 50, 50, 50, 50, 1]  # examples/train_mnist.py's integrand
 NODES = 51
 OUT = _build.BUILD_DIR / "phase_clock"
 BWD_MARKERS = ("integrand_bwd_kernel(const float*", "// out[p] = sum over the grid's blocks")
+BWD_P2_MARKERS = ("integrand_bwd_p2_kernel(const float*", "// out[p] = sum over the grid's blocks")
+# per kernel: its source, markers, widths and rows (the MNIST block; the
+# calibration block of examples/train_calibration.py, 500 x 6 rows)
+KERNELS = {
+    "bwd": ("integrand_bwd.cu", BWD_MARKERS, WIDTHS, 78400),
+    "bwd_p2": ("integrand_bwd_p2.cu", BWD_P2_MARKERS, [31, 50, 50, 50, 50, 1], 3000),
+}
 
 
 def instrument(src: str, start: str, end: str) -> tuple[str, list[str]]:
@@ -97,8 +111,11 @@ def build(source: str, kernel: str, start: str, end: str) -> tuple[ctypes.CDLL, 
         capture_output=True, text=True, check=True,
     )
     lines = proc.stderr.splitlines()
-    ptxas = next((" | ".join(s.strip() for s in lines[i + 2 : i + 4])
-                  for i, s in enumerate(lines) if kernel in s), "")
+    # after the kernel's "Compiling entry function" line: its stack and
+    # spills, then its registers
+    at = next((i for i, s in enumerate(lines) if "Compiling entry function" in s and kernel in s), None)
+    ptxas = "" if at is None else " | ".join(
+        s.strip() for s in lines[at + 1 : at + 4] if "stack frame" in s or "Used" in s)
     return ctypes.CDLL(str(lib)), labels, ptxas
 
 
@@ -126,17 +143,17 @@ def report(lib: ctypes.CDLL, labels: list[str], call, calls: int, sms: int) -> N
         print(f"  {i:2d} {cycles:14.0f} {100 * cycles / total:5.1f}%  {label[:70]}")
 
 
-def mnist_inputs(rows: int, dev: torch.device) -> tuple:
-    """Seeded integrand weights at WIDTHS, packed as the kernels take them,
-    and h, x, a cotangent g for ``rows`` rows, the nodes and weights."""
+def mnist_inputs(rows: int, dev: torch.device, widths: list = WIDTHS) -> tuple:
+    """Seeded integrand weights at ``widths``, packed as the kernels take
+    them, and h, x, a cotangent g for ``rows`` rows, the nodes and weights."""
     from umnn_tpu_torch.nn.core import torch_linear_init
     from umnn_tpu_torch.ops.quadrature import cc_tensors
 
     gen = torch.Generator().manual_seed(0)
-    layers = [torch_linear_init(gen, a, b, dev) for a, b in zip(WIDTHS[:-1], WIDTHS[1:])]
+    layers = [torch_linear_init(gen, a, b, dev) for a, b in zip(widths[:-1], widths[1:])]
     params = torch.cat([t.detach().reshape(-1) for l in layers
                         for t in (l.weight.T.contiguous(), l.bias)])
-    h = torch.randn(rows, WIDTHS[0] - 1, generator=gen).to(dev)
+    h = torch.randn(rows, widths[0] - 1, generator=gen).to(dev)
     x = (3 * torch.randn(rows, generator=gen)).to(dev)
     g = torch.randn(rows, generator=gen).to(dev)
     return layers, params, h, x, g, *cc_tensors(NODES - 1, dev)
@@ -144,24 +161,41 @@ def mnist_inputs(rows: int, dev: torch.device) -> tuple:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=78400)
+    ap.add_argument("--kernel", choices=list(KERNELS), default="bwd")
+    ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--calls", type=int, default=5)
+    ap.add_argument("--source", type=Path, default=None)
     args = ap.parse_args()
-    lib, labels, ptxas = build((_build.CSRC / "integrand_bwd.cu").read_text(),
-                               "integrand_bwd_kernel", *BWD_MARKERS)
-    print("ptxas integrand_bwd_kernel:", ptxas, flush=True)
+    file, markers, widths, rows = KERNELS[args.kernel]
+    source = args.source or _build.CSRC / file
+    name = f"integrand_{args.kernel}"
+    lib, labels, ptxas = build(source.read_text(), f"{name}_kernel", *markers)
+    print(f"source {source}", flush=True)
+    print(f"ptxas {name}_kernel:", ptxas, flush=True)
+
+    from umnn_tpu_torch.ops.integrand_kernel import fused_cc_integral_bwd_plain
 
     dev = torch.device("cuda:0")
-    _, params, h, x, g, nodes, ccw = mnist_inputs(args.rows, dev)
-    R, e = args.rows, WIDTHS[0] - 1
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    R = args.rows or rows
+    layers, params, h, x, g, nodes, ccw = mnist_inputs(R, dev, widths)
+    e = widths[0] - 1
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    p_widths = ctypes.cast(c_widths, ctypes.c_void_p)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if args.kernel == "bwd":
+        blocks = sms
+    else:
+        grid = lib.umnn_integrand_bwd_p2_grid
+        grid.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        blocks = grid(R, NODES, p_widths, len(widths) - 1)
+        if blocks < 1:
+            raise RuntimeError(f"{name}_grid failed: CUDA error {-blocks}")
     P = params.numel()
     partial = torch.empty(blocks * P, device=dev)
     dparams = torch.empty(P, device=dev)
     dx, S = torch.empty(R, device=dev), torch.empty(R, device=dev)
     dh = torch.empty(R, e, device=dev)
-    c_widths = (ctypes.c_int * len(WIDTHS))(*WIDTHS)
-    fn = lib.umnn_integrand_bwd
+    fn = getattr(lib, f"umnn_{name}")
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -169,12 +203,18 @@ def main() -> None:
     def call() -> None:
         rc = fn(x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(), ccw.data_ptr(),
                 g.data_ptr(), dx.data_ptr(), dh.data_ptr(), S.data_ptr(), partial.data_ptr(),
-                dparams.data_ptr(), R, NODES, blocks, ctypes.cast(c_widths, ctypes.c_void_p),
-                len(WIDTHS) - 1, 0.01, torch.cuda.current_stream().cuda_stream)
+                dparams.data_ptr(), R, NODES, blocks, p_widths, len(widths) - 1, 0.01,
+                torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"integrand_bwd launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
-    report(lib, labels, call, args.calls, blocks)
+    call()
+    want = fused_cc_integral_bwd_plain([l.weight.detach() for l in layers],
+                                       [l.bias.detach() for l in layers], x, h, nodes, ccw, g)[2]
+    err = float((dx - want).abs().max() / want.abs().max())
+    print(f"grid {blocks} blocks; dx's max error against the plain version, over its largest "
+          f"entry: {err:.3g}", flush=True)
+    report(lib, labels, call, args.calls, sms)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ PyTorch counterpart of `umnn_tpu/ops/integrand_kernel.py::fused_cc_integral`
     z_r = x_r/2 * sum_n w_n * ELU+1(MLP([x_r * s_n, h_r])),  s_n = (t_n+1)/2
 
 with LeakyReLU(neg_slope) hidden layers. On CUDA tensors the wrapper runs
-an autograd Function whose forward and backward launch one of three kernel
-pairs, or raise:
+an autograd Function whose forward and backward launch one of four kernel
+pairs:
 
 - the unpacked pair, ``csrc/integrand_fwd.cu`` (the Hopper port of
   `_fwd_kernel`, `:106-153`) and ``csrc/integrand_bwd.cu`` (the port of
@@ -20,18 +20,26 @@ pairs, or raise:
 - the pack-4 pair, ``csrc/integrand_fwd_p4.cu`` and
   ``csrc/integrand_bwd_p4.cu`` (the ports of `_fwd_kernel_pn`, `:522-570`,
   and `_bwd_kernel_pn`, `:573-700`, with the fold of `_fused_vjp_bwd_pn`),
-  for integrands at most 32 wide, four nodes at a time.
+  for integrands at most 32 wide, four nodes at a time;
+- the streamed pair, ``csrc/integrand_wide.cu``, for what the other three
+  pairs' kernels refuse (hidden widths past their limits, more than
+  MAX_LAYERS layers, a set past the card's shared memory per block): the
+  port of `_fwd_kernel` and `_bwd_kernel` at those widths, which JAX pads
+  to 128-lane multiples (`:59-70`). It keeps the weights in device memory
+  and computes the rows in chunks (:func:`_wide_chunks`).
 
 ``pack4=None`` and ``pack2=None`` pick the pair as JAX's auto does
 (`:1334-1343`): pack-4 where :func:`_pack4_applicable` holds, else pack-2
 where :func:`_pack2_applicable` holds, else the unpacked pair; pack-4 wins
-over pack-2 whatever ``pack2`` says. The gradient is the exact derivative
-of the K-node approximation, x's node path included. On CPU tensors the
-wrapper runs :func:`fused_cc_integral_plain`, the same arithmetic in plain
-PyTorch, and autograd differentiates it. All three pairs compute that one
+over pack-2 whatever ``pack2`` says. Where a kernel of that pair refuses
+the widths (its C helper, the one authority on its limits, says so), the
+call, forward and backward alike, goes to the streamed pair. The gradient
+is the exact derivative of the K-node approximation, x's node path
+included. On CPU tensors the wrapper runs :func:`fused_cc_integral_plain`,
+the same arithmetic in plain PyTorch, and autograd differentiates it. All four pairs compute that one
 function (the packed pairs change only how nodes are grouped and in what
 order sums are taken), so the plain versions here are the plain versions
-of all three.
+of all four.
 
 Weights follow ``nn.Linear``: ``ws[l]`` is ``[dout, din]``, ``bs[l]`` is
 ``[dout]``; the first layer's input is ``[x, h]`` and the last has one output.
@@ -39,10 +47,13 @@ Weights follow ``nn.Linear``: ``ws[l]`` is ``[dout, din]``, ``bs[l]`` is
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Sequence
 
 import torch
+
+from umnn_tpu_torch.ops import _build
 
 __all__ = [
     "LAUNCHES",
@@ -55,7 +66,8 @@ __all__ = [
 # Launches of each kernel since its count was last set to 0.
 LAUNCHES = {
     "integrand_fwd": 0, "integrand_bwd": 0, "integrand_fwd_p2": 0, "integrand_bwd_p2": 0,
-    "integrand_fwd_p4": 0, "integrand_bwd_p4": 0,
+    "integrand_fwd_p4": 0, "integrand_bwd_p4": 0, "integrand_fwd_wide": 0,
+    "integrand_bwd_wide": 0,
 }
 
 # Widest input or hidden layer of the pack-2 and pack-4 routes: half and a
@@ -63,6 +75,9 @@ LAUNCHES = {
 # here take them as their compile-time bounds.
 PACK2_WIDTH = 64
 PACK4_WIDTH = 32
+# Device memory the streamed pair's activations of one chunk of rows may
+# take, in bytes.
+WIDE_BUDGET = 512 << 20
 
 
 def _packable(ws, width: int) -> bool:
@@ -195,7 +210,7 @@ def fused_cc_integral(
     route = _route(ws, pack2, pack4)
     if not on_card:
         return fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, neg_slope)
-    widths = _check(ws, bs, x, h, nodes, ccw, tensors, route)
+    widths, route = _check(ws, bs, x, h, nodes, ccw, tensors, route)
     return _FusedIntegral.apply(x, h, nodes, ccw, float(neg_slope), widths, route, *ws, *bs)
 
 
@@ -221,7 +236,7 @@ def fused_cc_integral_bwd(
     route = _route(ws, pack2, pack4)
     if not on_card:
         return fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g, neg_slope)
-    widths = _check(ws, bs, x, h, nodes, ccw, tensors, route, grad=True)
+    widths, route = _check(ws, bs, x, h, nodes, ccw, tensors, route)
     return _launch_bwd(ws, bs, x, h, nodes, ccw, g, float(neg_slope), widths, route)
 
 
@@ -269,9 +284,21 @@ class _FusedIntegral(torch.autograd.Function):
         return dx, dh, None, None, None, None, None, *dws, *dbs
 
 
-def _check(ws, bs, x, h, nodes, ccw, tensors, route, grad=None) -> tuple:
-    """What the pair's kernels take (the backward's too where ``grad``, by
-    default where a gradient is wanted); returns the widths ``[1+e, ..., 1]``."""
+def _wide_chunks(R: int, K: int, widths, budget: int = WIDE_BUDGET) -> list:
+    """The streamed pair's chunks of rows, ``[(start, stop), ...]`` in order,
+    covering ``range(R)`` once: as many rows each as keep the activations
+    of every hidden layer, ``n_hidden x rows x K x max_width`` floats,
+    within ``budget`` bytes (at least one row)."""
+    per_row = 4 * (len(widths) - 2) * K * max(widths[1:-1])
+    rows = max(1, min(R, budget // per_row))
+    return [(a, min(a + rows, R)) for a in range(0, R, rows)]
+
+
+def _check(ws, bs, x, h, nodes, ccw, tensors, route) -> tuple:
+    """What the kernels take: ``(widths, route)``, the widths ``[1+e, ...,
+    1]`` and the pair's suffix, ``"_wide"`` where either kernel of
+    ``route``'s pair refuses them, so that a forward and its backward never
+    take different pairs."""
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"fused_cc_integral: the kernel takes float32, got {t.dtype}")
@@ -291,39 +318,38 @@ def _check(ws, bs, x, h, nodes, ccw, tensors, route, grad=None) -> tuple:
             )
     if widths[-1] != 1:
         raise ValueError(f"the integrand has {widths[-1]} outputs, the kernel takes 1")
-    # where a gradient is wanted, both kernels must take these widths before
-    # the forward runs, or a training step would fail only in its backward
-    if grad is None:
-        grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    for kernel in ("fwd", "bwd") if grad else ("fwd",):
-        _smem_check(kernel + route, widths, K, x.device)
-    return tuple(widths)
+    if min(widths) < 1:
+        raise ValueError(f"widths {widths}: every layer must be at least 1 wide")
+    lib = _build.load_library()
+    if not all(_staged_takes(lib, kind + route, widths, K, x.device) for kind in ("fwd", "bwd")):
+        route = "_wide"
+    return tuple(widths), route
 
 
-def _smem_check(kernel: str, widths, K: int, device):
-    """The bound library and the C widths array, once the kernel's own C
-    helper (the one authority on its limits) has accepted the widths."""
-    from umnn_tpu_torch.ops._build import load_library
-
-    lib = load_library()
+def _c_widths(widths):
+    """The widths as a C int array, behind a pointer that keeps it alive."""
     c_widths = (ctypes.c_int * len(widths))(*widths)
     ptr = ctypes.cast(c_widths, ctypes.c_void_p)
-    smem = getattr(lib, f"umnn_integrand_{kernel}_smem_bytes")(K, ptr, len(widths) - 1)
-    if smem < 0:
-        # MAX_LAYERS of csrc/common.cuh, MAX_WIDTH of the .cu file
-        raise ValueError(
-            f"widths {list(widths)}: beyond the layer count or hidden width that "
-            f"csrc/integrand_{kernel}.cu takes; backend='torch' computes it on the card"
-        )
+    ptr._keep = c_widths
+    return ptr
+
+
+def _staged_takes(lib, kernel: str, widths, K: int, device) -> bool:
+    """Whether a staged kernel takes the widths: its own C helper (the one
+    authority on its limits) gives a shared-memory size, -1 past MAX_LAYERS
+    of csrc/common.cuh or the .cu file's MAX_WIDTH, and the card gives a
+    block that much."""
+    smem = getattr(lib, f"umnn_integrand_{kernel}_smem_bytes")(K, _c_widths(widths),
+                                                                  len(widths) - 1)
     props = torch.cuda.get_device_properties(device)
-    limit = getattr(props, "shared_memory_per_block_optin", smem)
-    if smem > limit:
-        raise ValueError(
-            f"widths {list(widths)} with {K} nodes need {smem} bytes of shared memory "
-            f"in integrand_{kernel}; the card gives a block {limit}; backend='torch' "
-            f"computes it on the card"
-        )
-    return lib, c_widths, ptr
+    return 0 <= smem <= getattr(props, "shared_memory_per_block_optin", smem)
+
+
+@contextlib.contextmanager
+def _on(device):
+    """The device made current; yields its current stream's handle."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def _packed_params(ws, bs) -> torch.Tensor:
@@ -338,22 +364,39 @@ def _raise_on(rc: int, lib, kernel: str) -> None:
         )
 
 
+def _at(t: torch.Tensor, offset: int) -> int:
+    """The address of ``t``'s float32 element ``offset``."""
+    return t.data_ptr() + 4 * offset
+
+
+def _wide_scratch(lib, chunks, K: int, ptr, n: int, device) -> torch.Tensor:
+    """The streamed pair's scratch for its largest (first) chunk."""
+    floats = lib.umnn_integrand_wide_scratch_floats(chunks[0][1] - chunks[0][0], K, ptr, n)
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
 def _launch_fwd(ws, bs, x, h, nodes, ccw, neg_slope, widths, route) -> torch.Tensor:
     kernel = "fwd" + route
-    K = nodes.numel()
-    lib, c_widths, ptr = _smem_check(kernel, widths, K, x.device)
-    R = x.numel()
+    K, R, e = nodes.numel(), x.numel(), widths[0] - 1
+    lib, ptr, n = _build.load_library(), _c_widths(widths), len(widths) - 1
     out = torch.empty(R, dtype=torch.float32, device=x.device)
     if R == 0:
         return out.reshape(x.shape)
     params = _packed_params(ws, bs)
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, f"umnn_integrand_{kernel}")(
-            x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(),
-            ccw.data_ptr(), out.data_ptr(), R, K, ptr, len(ws), float(neg_slope),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on(rc, lib, f"integrand_{kernel}")
+    fn = getattr(lib, f"umnn_integrand_{kernel}")
+    with _on(x.device) as stream:
+        if route == "_wide":
+            chunks = _wide_chunks(R, K, widths)
+            scratch = _wide_scratch(lib, chunks, K, ptr, n, x.device)
+            for a, b in chunks:
+                rc = fn(_at(x, a), _at(h, a * e), params.data_ptr(), nodes.data_ptr(),
+                        ccw.data_ptr(), _at(out, a), b - a, K, ptr, n, float(neg_slope),
+                        scratch.data_ptr(), stream)
+                _raise_on(rc, lib, f"integrand_{kernel}")
+        else:
+            rc = fn(x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(),
+                    ccw.data_ptr(), out.data_ptr(), R, K, ptr, n, float(neg_slope), stream)
+            _raise_on(rc, lib, f"integrand_{kernel}")
     LAUNCHES[f"integrand_{kernel}"] += 1
     return out.reshape(x.shape)
 
@@ -362,11 +405,10 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
     """``(dws, dbs, dx, dh, S)`` as :func:`fused_cc_integral_bwd_plain`
     gives them; the kernel itself adds ``g S/2`` to dx."""
     kernel = "bwd" + route
-    K = nodes.numel()
-    lib, c_widths, ptr = _smem_check(kernel, widths, K, x.device)
+    K, R, e = nodes.numel(), x.numel(), widths[0] - 1
+    lib, ptr, n = _build.load_library(), _c_widths(widths), len(widths) - 1
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match x")
-    R = x.numel()
     dev = x.device
     n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
     dx = torch.empty(R, dtype=torch.float32, device=dev)
@@ -375,24 +417,34 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
     # dparams: per layer dW in nn.Linear's [dout, din] layout, then db
     dparams = torch.zeros(n_params, dtype=torch.float32, device=dev)
     if R > 0:
-        with torch.cuda.device(dev):
-            # the unpacked grid: one block per SM; the packed grids: as many
-            # blocks as fit on the card at once, at most one per row tile
-            grid = getattr(lib, f"umnn_integrand_{kernel}_grid")
-            blocks = grid(R, K, ptr, len(ws)) if route else grid(R)
-            if blocks < 1:
-                _raise_on(-blocks or 1, lib, f"integrand_{kernel}")
-            # one slice of dW/db partial sums per block of the grid
-            partial = torch.empty(blocks * n_params, dtype=torch.float32, device=dev)
-            params = _packed_params(ws, bs)
-            rc = getattr(lib, f"umnn_integrand_{kernel}")(
-                x.data_ptr(), h.data_ptr(), params.data_ptr(),
-                nodes.data_ptr(), ccw.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                dh.data_ptr(), S.data_ptr(), partial.data_ptr(), dparams.data_ptr(),
-                R, K, blocks, ptr, len(ws), float(neg_slope),
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _raise_on(rc, lib, f"integrand_{kernel}")
+        params = _packed_params(ws, bs)
+        fn = getattr(lib, f"umnn_integrand_{kernel}")
+        with _on(dev) as stream:
+            if route == "_wide":
+                # each chunk adds its dW/db to dparams, in chunk order
+                chunks = _wide_chunks(R, K, widths)
+                scratch = _wide_scratch(lib, chunks, K, ptr, n, dev)
+                for a, b in chunks:
+                    rc = fn(_at(x, a), _at(h, a * e), params.data_ptr(), nodes.data_ptr(),
+                            ccw.data_ptr(), _at(g, a), _at(dx, a), _at(dh, a * e), _at(S, a),
+                            dparams.data_ptr(), b - a, K, ptr, n, float(neg_slope),
+                            scratch.data_ptr(), stream)
+                    _raise_on(rc, lib, f"integrand_{kernel}")
+            else:
+                # the unpacked grid: one block per SM; the packed grids: as
+                # many blocks as fit on the card at once, at most one per
+                # row tile
+                grid = getattr(lib, f"umnn_integrand_{kernel}_grid")
+                blocks = grid(R, K, ptr, n) if route else grid(R)
+                if blocks < 1:
+                    _raise_on(-blocks or 1, lib, f"integrand_{kernel}")
+                # one slice of dW/db partial sums per block of the grid
+                partial = torch.empty(blocks * n_params, dtype=torch.float32, device=dev)
+                rc = fn(x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(),
+                        ccw.data_ptr(), g.data_ptr(), dx.data_ptr(), dh.data_ptr(),
+                        S.data_ptr(), partial.data_ptr(), dparams.data_ptr(), R, K, blocks,
+                        ptr, n, float(neg_slope), stream)
+                _raise_on(rc, lib, f"integrand_{kernel}")
         LAUNCHES[f"integrand_{kernel}"] += 1
     dws, dbs, off = [], [], 0
     for w, b in zip(ws, bs):
