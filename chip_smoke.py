@@ -39,8 +39,12 @@ scipy. Phases, each printing one flushed JSON line:
 7. kernel_p2  the pack-2 forward kernel against its plain version at one
            block of the calibration flow (3,000 rows, 51 nodes, widths
            31-50-50-50-50-1) and edge cases (101 padded nodes, an even K,
-           x = 0, x < 0, 77 rows, ReLU, the 64-wide limit); pack2=True on a
-           65-wide layer raises, a 32-wide integrand goes to the pack-4 pair;
+           x = 0, x < 0, 77 rows, ReLU, the 64-wide limit) and those of its
+           persistent grid (fewer rows than SMs, a last row tile of one row,
+           K = 1 and 2, one hidden layer 31-64-1, eight 64-wide layers at
+           K = 51 and 101 on smaller pair tiles); pack2=True on a 65-wide
+           layer raises, a 32-wide integrand goes to the pack-4 pair; its
+           launch shape;
 8. bwd_p2  the pack-2 backward kernel, through the autograd Function and
            through its wrapper, against the float64 plain version at the
            same cases; bit-identical reruns; its launch shape;
@@ -594,24 +598,28 @@ LAUNCH_SHAPE_KEYS = {
     "fwd": ("pairs_per_tile", "rows_per_row_tile"),
     "bwd": ("dw_sums_on_chip_from_layer",),
     "bwd_p2": ("pairs_per_tile", "rows_per_row_tile"),
+    "fwd_p2": ("pairs_per_tile", "rows_per_row_tile", "blocks"),
 }
 
 
-def launch_shape(kernel: str, widths: list, K: int) -> dict:
+def launch_shape(kernel: str, widths: list, K: int, rows: int | None = None) -> dict:
     """A staged kernel's launch shape at these widths and node count, from
     its own C helper ``umnn_integrand_{kernel}_occupancy``: threads per
     block, shared bytes, resident blocks and warps per SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers per thread,
-    then LAUNCH_SHAPE_KEYS[kernel]."""
+    then LAUNCH_SHAPE_KEYS[kernel]. ``rows``: the row count, for a helper
+    whose row tile depends on it (its first argument)."""
     import ctypes
 
     keys = LAUNCH_SHAPE_KEYS[kernel]
     fn = getattr(_build.load_library(), f"umnn_integrand_{kernel}_occupancy")
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    head = () if rows is None else (rows,)
+    fn.argtypes = [ctypes.c_int] * (1 + len(head)) + [ctypes.c_void_p, ctypes.c_int,
+                                                      ctypes.c_void_p]
     fn.restype = ctypes.c_int
     c_widths = (ctypes.c_int * len(widths))(*widths)
     out = (ctypes.c_int * (4 + len(keys)))()
-    rc = fn(K, ctypes.cast(c_widths, ctypes.c_void_p), len(widths) - 1,
+    rc = fn(*head, K, ctypes.cast(c_widths, ctypes.c_void_p), len(widths) - 1,
             ctypes.cast(out, ctypes.c_void_p))
     check(rc == 0, f"umnn_integrand_{kernel}_occupancy {widths} K={K}: error {rc}")
     threads, smem, per_sm, regs, *rest = list(out)
@@ -852,17 +860,56 @@ def p2_cases(gen, dev, calib, g=None) -> dict:
     return cases
 
 
+def p2_grid_cases(dev, calib) -> dict:
+    """The pack-2 forward's cases at the edges of its persistent grid, on
+    inputs of their own seed: fewer rows than SMs, a last row tile of one row
+    (1,001 rows), K = 1 and 2, one hidden layer, eight 64-wide layers on
+    smaller pair tiles at K = 51 and 101 padded."""
+    ws, bs, x, h = calib
+    gen = torch.Generator().manual_seed(13)
+    n2, c2 = cc_tensors(1, dev)
+    cal = (ws, bs, *cc_tensors(CALIB["nb_steps"], dev))
+    ws1, bs1, h1 = integrand_inputs(gen, [31, 64, 1], 3000, dev)
+    w8, b8, h8 = integrand_inputs(gen, [64] * 8 + [1], 1000, dev)
+    return {
+        "fewer_rows_than_sms_20": (cal, x[:20], h[:20], None, 0.01),
+        "last_row_tile_of_one_row_1001": (cal, x[:1001], h[:1001], None, 0.01),
+        "one_node_K1": ((ws, bs, n2[:1], c2[:1]), x, h, None, 0.01),
+        "two_nodes_K2": ((ws, bs, n2, c2), x, h, None, 0.01),
+        "one_hidden_layer_31_64_1": ((ws1, bs1, *cal[2:]), x, h1, None, 0.01),
+        "eight_layers_64_wide_K51": ((w8, b8, *cal[2:]), x[:1000], h8, None, 0.01),
+        "eight_layers_64_wide_K101": ((w8, b8, *padded_cc_quadrature(50, 100, dev)), x[:1000], h8,
+                                      None, 0.01),
+    }
+
+
 def phase_kernel_p2(gen, dev, calib):
-    """integrand_fwd_p2 against its plain version at the pack-2 cases, then
-    what it must refuse or leave to the unpacked pair."""
-    cases = p2_cases(gen, dev, calib)
+    """integrand_fwd_p2 against its plain version at the pack-2 cases and
+    its grid's edge cases, then what it must refuse or leave to the unpacked
+    pair."""
+    cases = {**p2_cases(gen, dev, calib), **p2_grid_cases(dev, calib)}
     ws, bs, x_main, h_main = calib
     nodes, ccw = cc_tensors(CALIB["nb_steps"], dev)
     errs = {}
+    # the widest and deepest set it takes, at K = 101: its shared memory fits
+    import ctypes
+
+    w8 = [64] * 8 + [1]
+    smem8 = _build.load_library().umnn_integrand_fwd_p2_smem_bytes(
+        101, ctypes.cast((ctypes.c_int * len(w8))(*w8), ctypes.c_void_p), len(w8) - 1)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    check(0 <= smem8 <= optin, f"kernel_p2: eight 64-wide layers at K=101 take {smem8} bytes")
     with torch.inference_mode():
         for case, ((cws, cbs, cn, cw), x, h, _, slope) in cases.items():
             before = dict(ik.LAUNCHES)
-            got = ik.fused_cc_integral(cws, cbs, x, h, cn, cw, neg_slope=slope, pack2=True)
+            if case.startswith("eight_layers"):
+                # the pack-2 backward refuses these widths, so the entry
+                # point sends them to the streamed pair: the forward's own
+                # launcher takes them
+                widths = (h.shape[-1] + 1, *[w.shape[0] for w in cws])
+                got = ik._launch_fwd(cws, cbs, x, h, cn, cw, slope, widths, "_p2")
+            else:
+                got = ik.fused_cc_integral(cws, cbs, x, h, cn, cw, neg_slope=slope, pack2=True)
             want = ik.fused_cc_integral_plain(cws, cbs, x, h, cn, cw, neg_slope=slope)
             torch.cuda.synchronize()
             check(launched_since(before) == {"integrand_fwd_p2": 1},
@@ -893,10 +940,15 @@ def phase_kernel_p2(gen, dev, calib):
               f"kernel_p2: a 32-wide integrand under auto launched {launched_since(before)}")
         compare(z32, ik.fused_cc_integral_plain(ws32, bs32, x_main[:1000], h32, nodes, ccw),
                 KERNEL_TOL, "kernel_p2 32-wide on the pack-4 pair")
+    shape = {"calibration_block": launch_shape("fwd_p2", CALIB_WIDTHS, nodes.numel(),
+                                                x_main.numel()),
+             "fewer_rows_than_sms_20": launch_shape("fwd_p2", CALIB_WIDTHS, nodes.numel(), 20),
+             "eight_layers_64_wide_K101": launch_shape("fwd_p2", w8, 101, 1000)}
     report("kernel_p2", rows=x_main.numel(), nodes=nodes.numel(), widths=CALIB_WIDTHS,
            tol=KERNEL_TOL, cases=errs, refused=["pack2_hidden_width_65"],
-           pack4_under_auto=["widths_31_32_32_1"])
-    return errs
+           pack4_under_auto=["widths_31_32_32_1"], launch_shape=shape,
+           smem_bytes_eight_layers_64_wide_K101={"bytes": smem8, "optin": optin})
+    return errs, shape
 
 
 def phase_bwd_p2(gen, dev, calib):
@@ -1419,7 +1471,7 @@ def main() -> None:
     flow, plain = phase_slice(rows, floor_bpp)
     step_k, step_p, launches, peak_bytes = phase_train(flow, plain, batches)
     calib = calib_block(gen, dev)
-    fwd_p2_errs = phase_kernel_p2(gen, dev, calib)
+    fwd_p2_errs, fwd_p2_shape = phase_kernel_p2(gen, dev, calib)
     g_calib, bwd_p2_errs, bwd_p2_shape = phase_bwd_p2(gen, dev, calib)
     calib_k, calib_p, calib_x, calib_launches = phase_calibration(dev)
     p4c, fwd_p4_errs = phase_kernel_p4(gen, dev)
@@ -1501,6 +1553,8 @@ def main() -> None:
            bwd_p2_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_ms"] / 1e9,
            fwd_p2_device_tflops=fwd_p2_bound["bound_flop"] / calib_t["fwd_p2_device_ms"] / 1e9,
            bwd_p2_device_tflops=bwd_p2_bound["bound_flop"] / calib_t["bwd_p2_device_ms"] / 1e9,
+           fwd_p2_device_bound_share=fwd_p2_bound["bound_ms"] / calib_t["fwd_p2_device_ms"],
+           fwd_p2_launch_shape=fwd_p2_shape["calibration_block"],
            bwd_p2_device_bound_share=bwd_p2_bound["bound_ms"] / calib_t["bwd_p2_device_ms"],
            bwd_p2_launch_shape=bwd_p2_shape["calibration_block"],
            calib_train_step_profile=calib_profile, pack4_ab=p4_t, toy=toy_t,

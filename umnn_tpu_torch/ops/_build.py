@@ -43,6 +43,7 @@ SIGNATURES = {
     "umnn_integrand_bwd_grid": ([_I], _I),
     "umnn_integrand_fwd_p2": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_fwd_p2_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_fwd_p2_occupancy": ([_I, _I, _P, _I, _P], _I),
     "umnn_integrand_bwd_p2": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_bwd_p2_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
     "umnn_integrand_bwd_p2_grid": ([_I, _I, _P, _I], _I),

@@ -1,20 +1,23 @@
-"""Where the time of ``csrc/integrand_fwd.cu`` goes, phase by phase.
+"""Where the time of a forward kernel goes, phase by phase.
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc::
 
-    python -m umnn_tpu_torch.ops.fwd_phase_clock [--rows 78400] [--calls 5]
-        [--source FILE]
+    python -m umnn_tpu_torch.ops.fwd_phase_clock [--kernel fwd|fwd_p2]
+        [--rows R] [--calls 5] [--source FILE]
 
-It compiles a copy of the forward kernel (``--source``: another version of
-the file, e.g. a parent commit's, with the same C interface) in which thread
-0 of every block adds the ``clock64()`` cycles between consecutive
-``__syncthreads()`` to one counter per barrier, runs it on the MNIST block
-(the backward's phase clock's seeded weights and inputs, widths
-31-100-50-50-50-50-1, 51 nodes), checks the result against the plain
-version, and prints the cycles per SM and call spent before each barrier
-(all blocks' counts over the card's SMs, so that a grid of one block per row
-tile and a persistent grid compare), with the first comment of its phase,
-and the call time with the clocks in. Nothing here runs at import.
+It compiles a copy of the forward kernel (``--kernel fwd``:
+``csrc/integrand_fwd.cu`` on the MNIST block, widths 31-100-50-50-50-50-1,
+78,400 rows; ``--kernel fwd_p2``: ``csrc/integrand_fwd_p2.cu`` on the
+calibration block, widths 31-50-50-50-50-1, 3,000 rows; both 51 nodes, the
+backward's phase clock's seeded weights and inputs; ``--source``: another
+version of the file, e.g. a parent commit's, with the same C interface) in
+which thread 0 of every block adds the ``clock64()`` cycles between
+consecutive ``__syncthreads()`` to one counter per barrier, checks the result
+against the plain version, and prints the cycles per SM and call spent before
+each barrier (all blocks' counts over the card's SMs, so that a grid of one
+block per row tile and a persistent grid compare; where several blocks share
+an SM all are counted), with the first comment of its phase, and the call
+time with the clocks in. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -26,39 +29,52 @@ from pathlib import Path
 import torch
 
 from umnn_tpu_torch.ops import _build
+from umnn_tpu_torch.ops.bwd_phase_clock import KERNELS as BWD_KERNELS
 from umnn_tpu_torch.ops.bwd_phase_clock import NODES, WIDTHS, build, mnist_inputs, report
 
-# the kernel's parameter list, and the first line past the kernel
+# each kernel's parameter list, and the first line past the kernel
 FWD_MARKERS = ("integrand_fwd_kernel(const float*", "}  // namespace")
+FWD_P2_MARKERS = ("integrand_fwd_p2_kernel(const float*", "}  // namespace")
+# per kernel: its source, markers, widths and rows (the blocks of the
+# backward's phase clock)
+KERNELS = {
+    "fwd": ("integrand_fwd.cu", FWD_MARKERS, *BWD_KERNELS["bwd"][2:]),
+    "fwd_p2": ("integrand_fwd_p2.cu", FWD_P2_MARKERS, *BWD_KERNELS["bwd_p2"][2:]),
+}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=78400)
+    ap.add_argument("--kernel", choices=list(KERNELS), default="fwd")
+    ap.add_argument("--rows", type=int, default=None)
     ap.add_argument("--calls", type=int, default=5)
-    ap.add_argument("--source", type=Path, default=_build.CSRC / "integrand_fwd.cu")
+    ap.add_argument("--source", type=Path, default=None)
     args = ap.parse_args()
-    lib, labels, ptxas = build(args.source.read_text(), "integrand_fwd_kernel", *FWD_MARKERS)
-    print(f"source {args.source}", flush=True)
-    print("ptxas integrand_fwd_kernel:", ptxas, flush=True)
+    file, markers, widths, rows = KERNELS[args.kernel]
+    source = args.source or _build.CSRC / file
+    name = f"integrand_{args.kernel}"
+    lib, labels, ptxas = build(source.read_text(), f"{name}_kernel", *markers)
+    print(f"source {source}", flush=True)
+    print(f"ptxas {name}_kernel:", ptxas, flush=True)
 
     from umnn_tpu_torch.ops.integrand_kernel import fused_cc_integral_plain
 
     dev = torch.device("cuda:0")
-    layers, params, h, x, _, nodes, ccw = mnist_inputs(args.rows, dev)
-    out = torch.empty(args.rows, device=dev)
-    c_widths = (ctypes.c_int * len(WIDTHS))(*WIDTHS)
-    fn = lib.umnn_integrand_fwd
+    R = args.rows or rows
+    layers, params, h, x, _, nodes, ccw = mnist_inputs(R, dev, widths)
+    out = torch.empty(R, device=dev)
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    fn = getattr(lib, f"umnn_{name}")
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def call() -> None:
         rc = fn(x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(), ccw.data_ptr(),
-                out.data_ptr(), args.rows, NODES, ctypes.cast(c_widths, ctypes.c_void_p),
-                len(WIDTHS) - 1, 0.01, torch.cuda.current_stream().cuda_stream)
+                out.data_ptr(), R, NODES, ctypes.cast(c_widths, ctypes.c_void_p),
+                len(widths) - 1, 0.01, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"integrand_fwd launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
     call()
     with torch.no_grad():
