@@ -58,15 +58,21 @@ scipy. Phases, each printing one flushed JSON line:
            4,096-row block and the flagship's block (192 rows, 21 nodes,
            widths 9-32-32-1), and edge cases (K = 16, 18, 19, 101 padded
            nodes, x = 0, x < 0, 77 rows, ReLU, the 32-wide limit, eight
-           layers); pack4=True on a 33-wide layer raises; auto takes the
-           pack-4, pack-2 and unpacked pairs where JAX's auto does;
+           layers) and those of its persistent grid (100 rows, fewer than
+           the SMs; 513 rows, a last row tile of one row; K = 1 and 2; eight
+           layers at K = 101 and 500, one row's items in several item tiles;
+           one row, a grid of one block); pack4=True on a 33-wide layer
+           raises; auto takes the pack-4, pack-2 and unpacked pairs where
+           JAX's auto does; bit-identical reruns; its launch shape;
 11. bwd_p4 the pack-4 backward kernel, through the autograd Function and
            through its wrapper, against the float64 plain version at the
-           same cases, by bwd_p2's rule; bit-identical reruns;
+           same cases, by bwd_p2's rule; bit-identical reruns; its launch
+           shape (with the partial-sum slices);
 12. toy    the flagship flow (2 blocks, D = 6) and the toy flow at the
            verify widths: gradients on the kernel route against the
            Leibniz route, 2 + 2 and 1 + 1 pack-4 launches per training
-           step and no other integrand kernel; then the port's toy driver
+           step and no other integrand kernel (and the flagship step's
+           device launches of all kernels); then the port's toy driver
            for 6 epochs on 8gaussians and on conditionnal8gaussians, whose
            test NLL must fall;
 13. wide   the streamed pair (integrand_wide.cu), which takes what the
@@ -86,9 +92,11 @@ scipy. Phases, each printing one flushed JSON line:
            step of each flow, beside the kernels' bounds; the unpacked pair
            also at the calibration block, and the pack-2 and unpacked pairs
            beside the pack-4 pair at the toy and 4,096-row blocks, as the
-           comparison routes; the unpacked pair's shares of their bounds
-           and launch shapes, and the forward's device time beside its
-           acceptance limit (not enforced).
+           comparison routes, with the pack-4 pair's shares of its bounds,
+           the launch floor at its launch shapes (launch_floor_ms) and the
+           host breakdown of its calls (host_breakdown); the unpacked pair's
+           shares of their bounds and launch shapes, and the forward's
+           device time beside its acceptance limit (not enforced).
 
 Then a ``kernels`` line, the nvidia-smi name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -99,6 +107,7 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import re
@@ -325,6 +334,185 @@ def device_ms(fn, kernel: str, n: int = 20) -> float:
         if any("_kernel" in k for k in counts) and all(c == n for c in counts.values()):
             return sum(e.device_time_total for e in hits) / n / 1e3
     raise AssertionError(f"profiler: launches of {kernel} seen in {n} calls: {counts}")
+
+
+# The launch floor's kernels: they do nothing, and are launched at another
+# kernel's grid, block and dynamic shared memory, so that a profiler trace
+# gives the least device time any kernel of that launch shape takes on this
+# card. A yardstick for the integrand kernels at small shapes, where the
+# operations bound lies below any launch; built apart from the port's
+# library, which holds only the integrand kernels.
+LAUNCH_FLOOR_CU = r"""
+#include <cuda_runtime.h>
+
+__global__ void empty_kernel() { extern __shared__ float sm[]; }
+
+__global__ void empty_reduce() {}
+
+// empty_kernel<<<grid, threads, smem>>> on `stream`, then, where grid2 > 0,
+// empty_reduce<<<grid2, threads2>>> (a backward's sweep and its reduction);
+// cudaGetLastError() after them.
+extern "C" int umnn_launch_floor(int grid, int threads, int smem, int grid2, int threads2,
+                                 void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(empty_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  empty_kernel<<<grid, threads, (size_t)smem, st>>>();
+  if (grid2 > 0) empty_reduce<<<grid2, threads2, 0, st>>>();
+  return cudaGetLastError();
+}
+"""
+
+
+@functools.cache
+def launch_floor_library():
+    """LAUNCH_FLOOR_CU built with the port's nvcc flags into its own library
+    under the build directory, loaded."""
+    import ctypes
+
+    out = _build.BUILD_DIR / "launch_floor"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "launch_floor.cu").write_text(LAUNCH_FLOOR_CU)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(out / "liblaunch_floor.so"), str(out / "launch_floor.cu")],
+                   capture_output=True, text=True, check=True)
+    lib = ctypes.CDLL(str(out / "liblaunch_floor.so"))
+    lib.umnn_launch_floor.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.umnn_launch_floor.restype = ctypes.c_int
+    return lib
+
+
+def launch_floor_ms(grid: int, threads: int, smem: int, grid2: int = 0, threads2: int = 0,
+                    n: int = 20) -> float:
+    """Device time per call of the launch floor's kernels at a kernel's grid,
+    block and shared memory (and, with ``grid2``, a second launch at a
+    reduction's grid and block), from a profiler trace."""
+    lib = launch_floor_library()
+
+    def call():
+        rc = lib.umnn_launch_floor(grid, threads, smem, grid2, threads2,
+                                   torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"umnn_launch_floor: error {rc}")
+
+    return device_ms(call, "empty", n)
+
+
+# The steps of a wrapper call timed by host_breakdown: where each is, what it
+# is called there, and its label. A step the wrapper does not have is left
+# out. Each step's time excludes the steps timed inside it: "launcher" is
+# the launchers' own Python, "autograd_function" the autograd Function's
+# apply around the forward launcher, "device_context" the entry and exit of
+# the device and stream context the launch runs in.
+HOST_STEPS = (
+    ("ik", "_on_card", "on_card"),
+    ("ik", "_route", "route"),
+    ("ik", "_check", "check"),
+    ("function", "apply", "autograd_function"),
+    ("ik", "_launch_fwd", "launcher"),
+    ("ik", "_launch_bwd", "launcher"),
+    ("ik", "_packed_params", "repack"),
+    ("ik", "_layer_pointers", "layer_pointers"),
+    ("ik", "_slots", "launch_config"),
+    ("ik", "_on", "device_context"),
+    ("torch", "empty", "allocations"),
+    ("torch", "zeros", "allocations"),
+    ("lib", "umnn_integrand_{kernel}_grid", "grid_query"),
+    ("lib", "umnn_integrand_{kernel}", "ctypes_launch"),
+)
+
+
+def host_breakdown(call, kernel: str, n: int = 200) -> dict:
+    """Host time per call of ``call`` (a wrapper call that launches
+    ``kernel``), in microseconds by time.perf_counter: the whole call
+    untouched, then with each step of HOST_STEPS timed (``other``: the rest
+    of the call), and the host cost of the two CUDA events that time a
+    call (made and recorded)."""
+    lib = _build.load_library()
+    owners = {"ik": ik, "torch": torch, "lib": lib, "function": ik._FusedIntegral}
+    for _ in range(20):
+        call()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        call()
+    untouched = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    spent, inner, saved = {}, [0.0], []  # inner: time of the timed steps inside the open ones
+
+    def start():
+        inner.append(0.0)
+        return time.perf_counter()
+
+    def stop(label, t0):
+        elapsed = time.perf_counter() - t0
+        spent[label] = spent.get(label, 0.0) + elapsed - inner.pop()
+        inner[-1] += elapsed
+
+    def timed(fn, label):
+        def wrapper(*args, **kw):
+            t0 = start()
+            try:
+                return fn(*args, **kw)
+            finally:
+                stop(label, t0)
+        return wrapper
+
+    class TimedContext:
+        """A context manager of ``fn``, its entry and exit timed."""
+
+        def __init__(self, fn, label, args, kw):
+            self.fn, self.label, self.args, self.kw = fn, label, args, kw
+
+        def __enter__(self):
+            t0 = start()
+            try:
+                self.cm = self.fn(*self.args, **self.kw)
+                return self.cm.__enter__()
+            finally:
+                stop(self.label, t0)
+
+        def __exit__(self, *exc):
+            t0 = start()
+            try:
+                return self.cm.__exit__(*exc)
+            finally:
+                stop(self.label, t0)
+
+    def timed_context(fn, label):
+        return lambda *args, **kw: TimedContext(fn, label, args, kw)
+
+    for owner, attr, label in HOST_STEPS:
+        obj, attr = owners[owner], attr.format(kernel=kernel)
+        if hasattr(obj, attr):
+            saved.append((obj, attr, getattr(obj, attr), attr in vars(obj)))
+            wrap = timed_context if attr == "_on" else timed
+            setattr(obj, attr, wrap(getattr(obj, attr), label))
+    try:
+        call()
+        torch.cuda.synchronize()
+        spent.clear()
+        t = time.perf_counter()
+        for _ in range(n):
+            call()
+        whole = (time.perf_counter() - t) / n * 1e6
+        torch.cuda.synchronize()
+    finally:
+        for obj, attr, fn, own in reversed(saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)  # inherited (the Function's apply): its own again
+    steps = {label: s / n * 1e6 for label, s in spent.items()}
+    t = time.perf_counter()
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        b.record()
+    events = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return {"call_us": untouched, "call_us_steps_timed": whole, **steps,
+            "other_us": whole - sum(steps.values()), "event_pair_us": events}
 
 
 def step_profile(step, x, n: int = 5) -> dict:
@@ -599,6 +787,8 @@ LAUNCH_SHAPE_KEYS = {
     "bwd": ("dw_sums_on_chip_from_layer",),
     "bwd_p2": ("pairs_per_tile", "rows_per_row_tile"),
     "fwd_p2": ("pairs_per_tile", "rows_per_row_tile", "blocks"),
+    "fwd_p4": ("items_per_tile", "rows_per_row_tile", "blocks"),
+    "bwd_p4": ("items_per_tile", "rows_per_row_tile", "blocks", "slices"),
 }
 
 
@@ -1056,7 +1246,14 @@ def p4_cases(gen, dev) -> dict:
     """The pack-4 kernels' cases: the toy flow's block, a 4,096-row block and
     the flagship's block; K = 16, 18, 19 (the toy block's is 17), 101 padded
     nodes, x = 0, x < 0, a ragged row count, ReLU, the 32-wide limit and
-    eight layers (MAX_LAYERS)."""
+    eight layers (MAX_LAYERS); then the edges of their persistent grids, on
+    inputs of their own seed: fewer rows than SMs, a last row tile of one row
+    (513 rows in tiles of 4), K = 1 and 2, eight layers at K = 101 padded (a
+    row tile of one row) and at K = 500 (one row's items in several item
+    tiles), a grid of one block (one row); and last, after a set of a few
+    bytes of shared memory is asked (2-1-1, K = 1), the toy widths, asked
+    before, at the toy block and at each kernel's largest row tile (one
+    wave of them on every resident block), which must still launch."""
     x_toy = toy_rows(TOY_BATCH, 1, dev)
     x_big = toy_rows(B2048, 2, dev)
     ws, bs, h = integrand_inputs(gen, TOY_WIDTHS, x_toy.numel(), dev)
@@ -1081,7 +1278,62 @@ def p4_cases(gen, dev) -> dict:
         "relu_neg_slope_0": (toy, x_toy, h, 0.0),
         "widths_32_32_32_32_1": ((ws32, bs32, *toy_q), x_big[:1000], h32, 0.01),
         "eight_layers_32_wide": ((ws8, bs8, *toy_q), x_big[:1000], h8, 0.01),
+        **p4_grid_cases(dev, toy, x_toy, h, x_big, (ws9, bs9, h9), (ws8, bs8, h8)),
     }
+
+
+def p4_grid_cases(dev, toy, x_toy, h, x_big, flag, eight) -> dict:
+    """The edges of the pack-4 kernels' persistent grids (see p4_cases)."""
+    (ws9, bs9, h9), (ws8, bs8, h8) = flag, eight
+    n2, c2 = cc_tensors(1, dev)
+    x8 = torch.randn(8, generator=torch.Generator().manual_seed(14)).to(dev)
+    gen = torch.Generator().manual_seed(15)
+    ws_tiny, bs_tiny, h_tiny = integrand_inputs(gen, [2, 1, 1], 64, dev)
+    K = toy[2].numel()
+    full = {kind: full_row_tile_rows(f"{kind}_p4", TOY_WIDTHS, K) for kind in ("fwd", "bwd")}
+    x_full = toy_rows((max(full.values()) + 1) // 2, 15, dev)
+    h_full = torch.randn(x_full.numel(), TOY_WIDTHS[0] - 1, generator=gen).to(dev)
+    return {
+        "fewer_rows_than_sms_100": (toy, x_toy[:100], h[:100], 0.01),
+        "last_row_tile_of_one_row_513": ((ws9, bs9, *toy[2:]), x_big[:513], h9[:513], 0.01),
+        "one_node_K1": ((*toy[:2], n2[:1], c2[:1]), x_toy, h, 0.01),
+        "two_nodes_K2": ((*toy[:2], n2, c2), x_toy, h, 0.01),
+        "eight_layers_32_wide_K101": ((ws8, bs8, *padded_cc_quadrature(50, 100, dev)), x8, h8[:8],
+                                      0.01),
+        "eight_layers_32_wide_K500": ((ws8, bs8, *cc_tensors(499, dev)), x8[:3], h8[:3], 0.01),
+        "grid_of_one_block_1_row": (toy, x_toy[:1], h[:1], 0.01),
+        "tiny_set_2_1_1_K1": ((ws_tiny, bs_tiny, n2[:1], c2[:1]), x_toy[:64], h_tiny, 0.01),
+        "toy_block_after_a_smaller_layout": (toy, x_toy, h, 0.01),
+        **{f"toy_{kind}_largest_row_tile_{rows}": (toy, x_full[:rows], h_full[:rows], 0.01)
+           for kind, rows in full.items()},
+    }
+
+
+def full_row_tile_rows(kernel: str, widths: list, K: int) -> int:
+    """The rows of one wave of ``kernel``'s largest row tiles at these widths
+    and K, one on every resident block: ``slots`` x ``t`` for the largest
+    ``t`` (at most MAX_TR, 64) that the launch shape at that many rows takes
+    as its rows per row tile."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = launch_shape(kernel, widths, K, 1)["blocks_per_sm"] * sms
+    tr = max(t for t in range(1, 65)
+             if launch_shape(kernel, widths, K, slots * t)["rows_per_row_tile"] == t)
+    return slots * tr
+
+
+P4_SHAPE_CASES = ("toy_block", "b2048_block", "flagship_block", "last_row_tile_of_one_row_513",
+                  "eight_layers_32_wide_K101", "eight_layers_32_wide_K500",
+                  "grid_of_one_block_1_row")
+
+
+def p4_shapes(kernel: str, cases: dict) -> dict:
+    """A pack-4 kernel's launch shape at the cases that show its grid."""
+    out = {}
+    for case in (*P4_SHAPE_CASES, *(c for c in cases if "largest_row_tile" in c)):
+        (cws, _, cn, _), x, h, _ = cases[case]
+        out[case] = launch_shape(kernel, [h.shape[-1] + 1] + [w.shape[0] for w in cws], cn.numel(),
+                                 x.numel())
+    return out
 
 
 def phase_kernel_p4(gen, dev):
@@ -1133,10 +1385,11 @@ def phase_kernel_p4(gen, dev):
                   f"kernel_p4 {case}: launched {launched_since(before)}, want {want}")
             compare(z, ik.fused_cc_integral_plain(rws, rbs, xr, rh, nodes, ccw), KERNEL_TOL,
                     f"kernel_p4 {case}")
+    shape = p4_shapes("fwd_p4", cases)
     report("kernel_p4", rows=x.numel(), nodes=nodes.numel(), widths=TOY_WIDTHS, tol=KERNEL_TOL,
            cases=errs, refused=["pack4_hidden_width_33"],
-           routes={k: v[2] for k, v in routes.items()})
-    return cases, errs
+           routes={k: v[2] for k, v in routes.items()}, launch_shape=shape)
+    return cases, errs, shape
 
 
 def phase_bwd_p4(gen, dev, cases):
@@ -1145,9 +1398,13 @@ def phase_bwd_p4(gen, dev, cases):
     of every LeakyReLU (as phase bwd_p2) at the pack-4 cases; two runs
     bit-identical."""
     g_all = torch.randn(2 * B2048, generator=gen).to(dev)
+    # cotangents for the cases of more rows than g_all (the largest row tiles)
+    more = max(x.numel() for _, x, _, _ in cases.values()) - g_all.numel()
+    g_rows = torch.cat([g_all, torch.randn(max(more, 0), generator=torch.Generator().manual_seed(16))
+                        .to(dev)])
     errs, auto_errs, kinks = {}, {}, {}
     for case, ((cws, cbs, cn, cw), x, h, slope) in cases.items():
-        args = (cws, cbs, x, h, cn, cw, g_all[: x.numel()], slope)
+        args = (cws, cbs, x, h, cn, cw, g_rows[: x.numel()], slope)
         pos, items, rows = kernel_branches(cws, cbs, x, h, cn, slope)
         want = bwd_plain64(*args, pos=pos)
         want64 = bwd_plain64(*args)
@@ -1179,13 +1436,14 @@ def phase_bwd_p4(gen, dev, cases):
         check(all(torch.equal(a, b) for a, b in zip(first[0] + first[1] + list(first[2:]),
                                                      again[0] + again[1] + list(again[2:]))),
               f"bwd_p4 {case}: two runs must agree bit for bit")
+    shape = p4_shapes("bwd_p4", cases)
     report("bwd_p4", rows=cases["toy_block"][1].numel(), nodes=TOY["nb_steps"] + 1,
-           widths=TOY_WIDTHS,
+           widths=TOY_WIDTHS, launch_shape=shape,
            reference="plain version in float64 on the kernel's sides of each LeakyReLU",
            tol={"row_scale": BWD_ROW_SCALE, "param_scale": BWD_PARAM_SCALE,
                 "plain_factor": BWD_PLAIN_FACTOR},
            cases=errs, cases_via_autograd=auto_errs, kinks=kinks)
-    return g_all, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}
+    return g_all, {**errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}}, shape
 
 
 def phase_toy(dev):
@@ -1199,9 +1457,11 @@ def phase_toy(dev):
     flag = UMNNMAFFlow(**FLAGSHIP, backend="auto", seed=0)
     flag_loss, flag_gap = route_gaps(flag, UMNNMAFFlow(**FLAGSHIP, backend="torch", seed=0),
                                      "toy flagship", x_flag)
-    flag_launches = step_launches(trainer(flag, 1e-5), x_flag)
+    flag_step = trainer(flag, 1e-5)
+    flag_launches = step_launches(flag_step, x_flag)
     want = {**NONE_LAUNCHED, "integrand_fwd_p4": 2, "integrand_bwd_p4": 2}
     check(flag_launches == want, f"toy: flagship step launched {flag_launches}, want {want}")
+    flag_profile = step_profile(flag_step, x_flag)  # its device launches, all kernels
 
     x_toy = torch.as_tensor(inf_train_gen("8gaussians", np.random.RandomState(4), TOY_BATCH),
                             device=dev)
@@ -1234,6 +1494,7 @@ def phase_toy(dev):
         }
     report("toy", flagship_batch=FLAGSHIP_BATCH, flagship_widths=FLAGSHIP_WIDTHS,
            flagship_loss=flag_loss, flagship=flag_gap, flagship_launches_per_step=flag_launches,
+           flagship_step_profile=flag_profile,
            toy_batch=TOY_BATCH, toy_widths=TOY_WIDTHS, toy_loss=toy_loss, toy=toy_gap,
            launches_per_step=launches, grad_gap_tol=TRAIN_GRAD_GAP, driver=runs,
            phase_seconds=time.perf_counter() - t0)
@@ -1391,12 +1652,35 @@ def phase_wide(gen, dev, calib, name):
 
 
 
+def pack4_host_and_floor(ws, bs, x, h, nodes, ccw, g) -> dict:
+    """The host breakdown of a pack-4 forward and backward call on these
+    inputs, and the launch floor at each kernel's own launch shape (the
+    backward's with its reduction, (P + 31) / 32 blocks of 256 threads)."""
+    widths = [h.shape[-1] + 1] + [w.shape[0] for w in ws]
+    R, K = x.numel(), nodes.numel()
+    P = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    t = {}
+    with torch.inference_mode():
+        t["fwd_p4_host_us"] = host_breakdown(
+            lambda: ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, pack4=True), "fwd_p4")
+    t["bwd_p4_host_us"] = host_breakdown(
+        lambda: ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, g, pack4=True), "bwd_p4")
+    for kind in ("fwd", "bwd"):
+        shape = launch_shape(f"{kind}_p4", widths, K, R)
+        t[f"{kind}_p4_launch_shape"] = shape
+        launch = (shape["blocks"], shape["threads"], shape["smem_bytes"])
+        t[f"{kind}_p4_launch_floor_ms"] = launch_floor_ms(*launch)
+    t["bwd_p4_pair_launch_floor_ms"] = launch_floor_ms(*launch, (P + 31) // 32, 256)
+    return t
+
+
 def time_pack4(cases, g_all, flow, step_k, step_p, x_toy, name: str) -> tuple:
     """The pack-4 pair at the toy block (R = 512) and the 4,096-row block,
     beside the pack-2 and unpacked pairs on the same inputs and the plain
-    versions; then the toy training step on the Leibniz route and on the
-    kernel route with its blocks on each pair in turn (the A/B of
-    scripts/pack4_ab.py), with the kernel route's profile."""
+    versions, with its host breakdown and launch floors; then the toy
+    training step on the Leibniz route and on the kernel route with its
+    blocks on each pair in turn (the A/B of scripts/pack4_ab.py), with the
+    kernel route's profile."""
     pairs = (("p4", {"pack4": True}, "_p4"), ("p2", {"pack2": True, "pack4": False}, "_p2"),
              ("unpacked", {"pack2": False, "pack4": False}, ""))
     out = {}
@@ -1420,6 +1704,11 @@ def time_pack4(cases, g_all, flow, step_k, step_p, x_toy, name: str) -> tuple:
             lambda: ik.fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g), n=10)
         t["fwd_bound"] = bound(kernel_flops(widths, R, K), kernel_bytes(widths, R, K), name)
         t["bwd_bound"] = bound(bwd_kernel_flops(widths, R, K), bwd_kernel_bytes(widths, R, K), name)
+        t.update(pack4_host_and_floor(ws, bs, x, h, nodes, ccw, g))
+        for kind in ("fwd", "bwd"):
+            bound_ms = t[f"{kind}_bound"]["bound_ms"]
+            t[f"{kind}_p4_device_bound_share"] = bound_ms / t[f"{kind}_p4_device_ms"]
+            t[f"{kind}_p4_device_against_p2"] = t[f"{kind}_p4_device_ms"] / t[f"{kind}_p2_device_ms"]
         out[block] = t
     steps = {"toy_train_step_plain_ms": median_ms(lambda: step_p(x_toy), n=10, warmup=2)}
     for label, kw, suffix in pairs + pairs[::-1]:  # two rounds, the second in reverse
@@ -1457,7 +1746,6 @@ def main() -> None:
     ptxas = _build.ptxas_report()
     report("build", seconds=time.perf_counter() - t, nvcc=_build.find_nvcc(),
            library=str(lib_path.relative_to(_build.BUILD_DIR.parents[1])), ptxas=ptxas)
-
     gen = torch.Generator().manual_seed(0)
     data, floor_bpp = synthetic_mnist_ar1(seed=0, n=(0, 0, BATCH))
     rows = torch.as_tensor(data.tst_x, device=dev)  # [100, 784] logit space
@@ -1474,8 +1762,8 @@ def main() -> None:
     fwd_p2_errs, fwd_p2_shape = phase_kernel_p2(gen, dev, calib)
     g_calib, bwd_p2_errs, bwd_p2_shape = phase_bwd_p2(gen, dev, calib)
     calib_k, calib_p, calib_x, calib_launches = phase_calibration(dev)
-    p4c, fwd_p4_errs = phase_kernel_p4(gen, dev)
-    g_p4, bwd_p4_errs = phase_bwd_p4(gen, dev, p4c)
+    p4c, fwd_p4_errs, fwd_p4_shape = phase_kernel_p4(gen, dev)
+    g_p4, bwd_p4_errs, bwd_p4_shape = phase_bwd_p4(gen, dev, p4c)
     toy_flow, toy_k, toy_p, toy_x, toy_launches = phase_toy(dev)
     wide_fwd_errs, wide_bwd_errs, wide_launches, wide_t = phase_wide(gen, dev, calib, name)
 

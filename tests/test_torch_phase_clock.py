@@ -1,10 +1,11 @@
 """The phase-clock copies of ``integrand_bwd.cu``, ``integrand_bwd_p2.cu``,
-``integrand_fwd.cu`` and ``integrand_fwd_p2.cu`` (``ops/bwd_phase_clock.py``,
-with ``--kernel bwd`` and ``--kernel bwd_p2``, and ``ops/fwd_phase_clock.py``,
-with ``--kernel fwd`` and ``--kernel fwd_p2``).
+``integrand_bwd_p4.cu``, ``integrand_fwd.cu``, ``integrand_fwd_p2.cu`` and
+``integrand_fwd_p4.cu`` (``ops/bwd_phase_clock.py``, with ``--kernel bwd``,
+``bwd_p2`` and ``bwd_p4``, and ``ops/fwd_phase_clock.py``, with ``--kernel
+fwd``, ``fwd_p2`` and ``fwd_p4``).
 
 They are compiled and run only on a card; here the source transformation is
-checked for the four kernels: one counter after every barrier of the kernel,
+checked for the six kernels: one counter after every barrier of the kernel,
 each with the comment that opens its phase, and the rest of the file as it
 was.
 """
@@ -14,9 +15,10 @@ import re
 import pytest
 
 from umnn_tpu_torch.ops import _build
-from umnn_tpu_torch.ops.bwd_phase_clock import BWD_MARKERS, BWD_P2_MARKERS, instrument
+from umnn_tpu_torch.ops.bwd_phase_clock import (BWD_MARKERS, BWD_P2_MARKERS, BWD_P4_MARKERS,
+                                                instrument)
 from umnn_tpu_torch.ops.bwd_phase_clock import KERNELS as CLOCKED
-from umnn_tpu_torch.ops.fwd_phase_clock import FWD_MARKERS, FWD_P2_MARKERS
+from umnn_tpu_torch.ops.fwd_phase_clock import FWD_MARKERS, FWD_P2_MARKERS, FWD_P4_MARKERS
 from umnn_tpu_torch.ops.fwd_phase_clock import KERNELS as FWD_CLOCKED
 
 # per kernel: its source, markers, C functions, and phases its labels name
@@ -28,6 +30,11 @@ KERNELS = {
                ("umnn_integrand_bwd_p2_smem_bytes", "umnn_integrand_bwd_p2_grid",
                 "umnn_integrand_bwd_p2("),
                ("Forward again", "Layer 1: act[0] now holds dz1")),
+    "bwd_p4": ("integrand_bwd_p4.cu", BWD_P4_MARKERS,
+               ("umnn_integrand_bwd_p4_smem_bytes", "umnn_integrand_bwd_p4_slots",
+                "umnn_integrand_bwd_p4_occupancy", "umnn_integrand_bwd_p4("),
+               ("Stage the weights", "Forward again", "Hidden layers", "The dz of the layer below",
+                "Layer 1: act[0] now holds dz1", "The row tile's node sums")),
     "fwd": ("integrand_fwd.cu", FWD_MARKERS,
             ("umnn_integrand_fwd_smem_bytes", "umnn_integrand_fwd_occupancy",
              "umnn_integrand_fwd("),
@@ -37,6 +44,11 @@ KERNELS = {
                 "umnn_integrand_fwd_p2("),
                ("Stage the weights", "Node-invariant first layer", "Hidden products",
                 "Output layer: each node slot's partial sums")),
+    "fwd_p4": ("integrand_fwd_p4.cu", FWD_P4_MARKERS,
+               ("umnn_integrand_fwd_p4_smem_bytes", "umnn_integrand_fwd_p4_slots",
+                "umnn_integrand_fwd_p4_occupancy", "umnn_integrand_fwd_p4("),
+               ("Stage the weights", "Node-invariant first layer", "Hidden products",
+                "Output layer: f at every item")),
 }
 
 
@@ -85,14 +97,15 @@ def test_the_rest_of_the_file_is_unchanged(kernel):
     assert "long long t_prev = clock64();" in out
 
 
-@pytest.mark.parametrize("kernel", ["bwd", "bwd_p2"])
+@pytest.mark.parametrize("kernel", ["bwd", "bwd_p2", "bwd_p4"])
 def test_the_clock_script_names_each_backward_by_its_file(kernel):
     assert CLOCKED[kernel][:2] == KERNELS[kernel][:2]
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "fwd_p2"])
+@pytest.mark.parametrize("kernel", ["fwd", "fwd_p2", "fwd_p4"])
 def test_the_clock_script_names_each_forward_by_its_file_and_block(kernel):
     """Each forward is clocked on its backward's block: the MNIST block for
-    the unpacked pair, the calibration block for the pack-2 pair."""
+    the unpacked pair, the calibration block for the pack-2 pair, the
+    4,096-row block for the pack-4 pair."""
     assert FWD_CLOCKED[kernel][:2] == KERNELS[kernel][:2]
     assert FWD_CLOCKED[kernel][2:] == CLOCKED[kernel.replace("fwd", "bwd")][2:]

@@ -1,7 +1,8 @@
 // Helpers shared by the integrand kernels of this directory: the
 // integrand's widths and their check, LeakyReLU, aligned vector loads from
-// shared memory, the offsets of the flat parameter gradient, the ordered sum
-// of per-block partials, and the dynamic shared memory set-up of a launch.
+// shared memory, asynchronous copies into it, the offsets of the flat
+// parameter gradient, the ordered sum of per-block partials, and the dynamic
+// shared memory set-up of a launch.
 // Each kernel keeps its own tile sizes, width limit and shared-memory layout.
 
 #pragma once
@@ -43,6 +44,25 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+
+// An asynchronous 4-byte copy from global to shared memory (cp.async): a
+// thread's copies are all in flight at once and take no registers; wait_all
+// waits for them. Compiled for the host, a plain copy.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *dst = *src;
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
 }
 
 // Offsets of each layer's dW ([dout][din]) and db in the flat gradient;

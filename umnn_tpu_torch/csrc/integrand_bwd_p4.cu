@@ -1,6 +1,5 @@
 // Backward of the Clenshaw-Curtis integral of the UMNN integrand MLP for
-// integrands whose every layer is at most 32 wide, four quadrature nodes at a
-// time:
+// integrands whose every layer is at most 32 wide (the pack-4 route):
 //
 //   z_r = x_r/2 * sum_n w_n * f_{r,n},  f_{r,n} = ELU+1( MLP([x_r * s_n, h_r]) ),
 //   s_n = (t_n+1)/2, LeakyReLU(neg_slope) between layers,
@@ -8,22 +7,23 @@
 // for an upstream cotangent g_r: the exact derivative of this K-node sum with
 // respect to every weight and bias, h_r and x_r (node path and product rule).
 // It computes the same function as integrand_bwd.cu; only the grouping of
-// nodes and the order of the sums differ.
+// the (row, node) items and the order of the sums differ.
 //
 // Replaces the TPU kernel `_bwd_kernel_pn` of umnn_tpu/ops/integrand_kernel.py
 // (:573-700, launched by `_run_bwd_pn` :829) together with its host fold in
 // `_fused_vjp_bwd_pn` (:1242-1284). There four nodes share a matmul row
-// through diag(W, W, W, W); the kernel forms the cross-block gradients too
-// and writes the output layer's dW transposed (:646-657), the host drops the
-// cross blocks, sums the four diagonal ones, and gathers h's gradient from
-// four feature slots. Here the unit of work is one row's group of nodes
-// (4j, ..., 4j+3), K padded to a multiple of 4 with nodes at t = -1 and
-// weight 0 (no output changes for them): the four nodes of a group add into
-// one dW and one db, and there is one h per row, so the fold becomes nothing.
-// Per (row, node) it computes
+// through diag(W, W, W, W), K padded to a multiple of 4; the kernel forms the
+// cross-block gradients too, the host drops them, sums the four diagonal
+// blocks and gathers h's gradient from four feature slots. Here the unit of
+// work is a (row, node) item with no padding: every item of a tile adds into
+// one dW and one db, and there is one h per row, so the fold becomes
+// nothing; the weight float4 that feeds 4 items x 4 columns of a register
+// tile is what diag(W, W, W, W) buys on the MXU. Per item it computes
 //   - the forward chain again (nothing of the forward is saved), in the
-//     order integrand_fwd_p4.cu takes it; the LeakyReLU derivative comes
-//     from a > 0 and the ELU+1 derivative from min(f, 1);
+//     order integrand_fwd_p4.cu takes it (layer 1: an in-order FMA chain
+//     over h plus the bias, x w1x rounded once and one FMA with s_n; later
+//     layers an in-order FMA chain, then the bias); the LeakyReLU derivative
+//     comes from a > 0 and the ELU+1 derivative from min(f, 1);
 //   - the cotangent ct = w_n g_r x_r/2 and the MLP's VJP down to layer 2;
 //   - in layer 1 the node axis collapses before any contraction:
 //     dz_sum_r = sum_n dz1_{r,n}, dW1[:, 1:] += dz_sum^T h, db1 += sum dz_sum,
@@ -33,525 +33,491 @@
 //     (never z/x, which is singular at x = 0).
 // dW comes out in nn.Linear's [dout, din] layout.
 //
-// Bound on an H100: operations, but below a launch's latency at the shapes
-// that use it: the toy flow's block (R = 512 rows, 17 nodes, widths
-// 11-32-32-1) is 58.08 MFLOP (chip_smoke.py::bwd_kernel_flops), 0.87 us at
-// the 66.9 TFLOP/s float32 peak; a 4,096-row block 6.92 us.
+// Bound on an H100: operations, but below a launch at the shapes that use
+// it: the toy flow's block (R = 512 rows, 17 nodes, widths 11-32-32-1) is
+// 58.08 MFLOP (chip_smoke.py::bwd_kernel_flops), 0.87 us at the 66.9 TFLOP/s
+// float32 peak; a 4,096-row block 6.92 us. Two empty launches at its shape
+// take about 1.8 us on the card (chip_smoke.py::launch_floor_ms), so its time
+// is set by how soon each SM gets through its share: staging, a chain of
+// barriers, and the products.
 //
-// What the design does about it: plain float32 FMA on the CUDA cores. A block
-// of 128 threads keeps the weights and its own dW/db sums (about 6 KB each at
-// the toy widths, under 30 KB at MAX_LAYERS) in shared memory, beside every
-// hidden activation of a tile of MP = 16 (row, group) units, so several
-// blocks share an SM. A persistent grid of as many blocks as fit on the card
-// at once, and at most one per row tile, walks row tiles of TR = 2 rows: the
-// toy block's 512 rows are 256 tiles, a block each. dW/db partial sums stay
-// in shared memory for the whole walk and go to device memory once per block,
-// each block into its own slice; a second launch sums the slices in block
-// order. No atomics: every element has one owner thread, so reruns on one
-// card are bit-identical. Each row's nodes stay in one block, so dz_sum, dh,
-// dx and S need no sum across blocks. In the forward and dz products a
-// thread keeps a register tile in which a weight value feeds all four nodes
-// of its unit. Known waste, left to later work: a row tile's 10 units (at
-// K = 17) in a 16-unit tile, three padding nodes in its last group, widths
-// padded to multiples of 4, no tensor cores.
+// What the design does about it: plain float32 FMA on the CUDA cores, in a
+// persistent grid of at most one 256-thread block per resident slot (one per
+// SM at these widths).
+//   - The host picks the rows per row tile from R and the slots, the fewest
+//     waves first: the toy block's 512 rows are 128 tiles of 4 rows (68
+//     items), 4,096 rows 128 tiles of 32 (544 items), one per block.
+//   - Each block stages the weights once, straight from each layer's own
+//     tensor (their addresses a __grid_constant__ argument, so nothing is
+//     repacked on the host), every copy a cp.async in flight at once, lane a
+//     column and warp a row: no division, no bank conflict. Each weight is
+//     kept once, as nn.Linear keeps it; the forward and dz products read it
+//     along and across its rows.
+//   - A row tile's items go through the MLP in one item tile where it fits
+//     in shared memory (else in tiles of MT items), on 4 x 4 register tiles:
+//     the forward again and the dz products in the same function.
+//   - dW: warp w rows 4w .. 4w + 3, lane a column, the warp's dz loads alike
+//     for all lanes; db 8 threads a row meeting by shuffles. The block keeps
+//     its dW/db sums in shared memory for its whole walk, in the flat
+//     gradient's layout, and writes them to its own slice once, so there
+//     are as many slices as blocks; a second launch of (P + 31)/32 blocks
+//     sums them, lanes over parameters and warps over slices, in a fixed
+//     order. No atomics: reruns on one card are bit-identical.
+//   - Each row's nodes stay in one block, so dz_sum, dh, dx and S need no
+//     sum across blocks; each node sum is taken by one thread in node order.
+//   - The layout is computed on the host and read from the constant bank.
 
-#include "common.cuh"
+#include "pack4.cuh"
 
 namespace {
 
-constexpr int NODES = 4;          // nodes per unit
-constexpr int TR = 2;             // rows per row tile
-constexpr int MP = 16;            // (row, node group) units per unit tile
-constexpr int NI = NODES * MP;    // (row, node) items per unit tile: node slot s at s * MP
-constexpr int LDA = NI + 4;       // row stride of an activation tile (rows 4 apart: other banks)
-constexpr int NTHREADS = 128;
-constexpr int MAX_WIDTH = 32;     // 1 + e and every hidden width
-
-// Offsets into shared memory, in floats, each a multiple of 4 (16 bytes).
-// Weights: layer 0 as W1^T [1+e][ldw[0]]; hidden layer l as W^T
-// [w[l]][ldw[l]]; the output row with its bias at index ldw[n_layers-2].
-// ldw[l] = round_up(w[l+1], 4), zero-padded. The dW/db sums use the same
-// layout from `grad` on. Activations of layer l: [ldw[l]][LDA], padded rows 0.
+// Offsets into shared memory, in floats, each a multiple of 4 (16 bytes),
+// and the tile sizes: TR rows a row tile, MT items an item tile (MTp rounded
+// up to 4). ld[l]: layer l+1's width rounded up to 4, the rows of act[l],
+// its output; LDA: an activation row's stride, 4 past a multiple of 32 so
+// that the dW product's lanes, a row each, read other banks. Layer 1: w1
+// (W1 as it is, [ld0][ldw1]), b1. Hidden layer l: wn (W as it is,
+// [ld[l]][ld[l-1]]), bias. Per row of the row tile (stride ldr): ph, xw (x w1x), dzsum and xpart (dW1[:, 0]'s part);
+// fw and vx per (row, node), stride ldfw (odd). sums: the block's dW/db sums
+// at the flat gradient's offsets pw, pb.
 struct Layout {
-  int w1t, b1, wout, nweights, grad, ph, dzsum, xs, gs, s, ccw, fw, vx, dzl, total;
-  int hid_w[MAX_LAYERS], hid_b[MAX_LAYERS], ldw[MAX_LAYERS], act[MAX_LAYERS];
+  int TR, MT, MTp, LDA, ldr, ldfw, ldw1, P;
+  int w1, b1, wout, bout, sums, s, ccw, xs, gs, hs, ph, xw, dzsum, xpart, fw, vx,
+      dzl, total;
+  int ld[MAX_LAYERS], wn[MAX_LAYERS], bias[MAX_LAYERS], act[MAX_LAYERS];
+  int pw[MAX_LAYERS], pb[MAX_LAYERS];
 };
 
-__host__ __device__ inline Layout make_layout(const Dims& d, int K) {
+inline Layout layout_for(const Dims& d, int K, int TR, int MT) {
   Layout L;
-  const int Kp = round_up(K, NODES);
-  for (int l = 0; l < d.n_layers - 1; ++l) L.ldw[l] = round_up(d.w[l + 1], 4);
+  const int nl = d.n_layers, F = d.w[0], e = F - 1, H1 = d.w[1];
+  L.TR = TR;
+  L.MT = MT;
+  L.MTp = round_up(MT, 4);
+  L.LDA = L.MTp + (36 - L.MTp % 32) % 32;
+  for (int l = 0; l < nl - 1; ++l) L.ld[l] = round_up(d.w[l + 1], 4);
+  const int ld0 = L.ld[0];
+  L.ldr = ld0 % 8 == 0 ? ld0 + 4 : ld0;  // rows of ph read side by side: other banks
+  L.ldfw = K | 1;
+  L.ldw1 = F | 1;
+  L.P = param_offsets(d, L.pw, L.pb);
   int off = 0;
-  L.w1t = off;  off += d.w[0] * L.ldw[0];
-  L.b1 = off;   off += L.ldw[0];
-  for (int l = 1; l < d.n_layers - 1; ++l) {
-    L.hid_w[l] = off;  off += d.w[l] * L.ldw[l];
-    L.hid_b[l] = off;  off += L.ldw[l];
+  L.w1 = off;   off += round_up(ld0 * L.ldw1, 4);
+  L.b1 = off;   off += ld0;
+  for (int l = 1; l < nl - 1; ++l) {
+    L.wn[l] = off;    off += L.ld[l] * L.ld[l - 1];
+    L.bias[l] = off;  off += L.ld[l];
   }
-  L.wout = off;  off += round_up(L.ldw[d.n_layers - 2] + 1, 4);
-  L.nweights = off;
-  L.grad = off;  off += L.nweights;
-  L.ph = off;    off += TR * L.ldw[0];
-  L.dzsum = off; off += TR * L.ldw[0];
-  L.xs = off;    off += 4;
-  L.gs = off;    off += 4;
-  L.s = off;     off += Kp;
-  L.ccw = off;   off += Kp;
-  L.fw = off;    off += TR * Kp;
-  L.vx = off;    off += TR * Kp;
-  L.dzl = off;   off += NI;
-  for (int l = 0; l < d.n_layers - 1; ++l) {
+  L.wout = off;  off += L.ld[nl - 2];
+  L.bout = off;  off += 4;
+  L.sums = off;  off += round_up(L.P, 4);
+  L.s = off;     off += round_up(K, 4);
+  L.ccw = off;   off += round_up(K, 4);
+  L.xs = off;    off += round_up(TR, 4);
+  L.gs = off;    off += round_up(TR, 4);
+  L.hs = off;    off += round_up(TR * e, 4);
+  L.ph = off;    off += TR * L.ldr;
+  L.xw = off;    off += TR * L.ldr;
+  L.dzsum = off; off += TR * L.ldr;
+  L.xpart = off; off += TR * L.ldr;
+  L.fw = off;    off += round_up(TR * L.ldfw, 4);
+  L.vx = off;    off += round_up(TR * L.ldfw, 4);
+  L.dzl = off;   off += L.MTp;
+  for (int l = 0; l < nl - 1; ++l) {
     L.act[l] = off;
-    off += L.ldw[l] * LDA;
+    off += L.ld[l] * L.LDA;
   }
   L.total = off;
   return L;
 }
 
-// Forward of one hidden layer: out[j][i] = leaky(sum_k in[k][i] w[k][j] + b[j])
-// for j < ldo (padded outputs come out 0), an in-order FMA chain over k < din.
-// Thread: unit u (all four nodes) x outputs 4og..4og+3.
-__device__ void fwd_layer(const float* __restrict__ in, float* __restrict__ out,
-                          const float* __restrict__ w, const float* __restrict__ bias,
-                          int din, int ldo, float neg_slope) {
-  const int u = threadIdx.x & 15, og = threadIdx.x >> 4;
-  if (4 * og >= ldo) return;
-  const int j0 = 4 * og;
-  float acc[NODES][4] = {};  // [node][output]
-#pragma unroll
-  for (int k0 = 0; k0 < MAX_WIDTH; k0 += 4) {
-    if (k0 >= din) break;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int k = k0 + kk;
-      if (k < din) {
-        const float4 c = ld4(w + k * ldo + j0);
-        const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int s = 0; s < NODES; ++s) {
-          const float a = in[k * LDA + s * MP + u];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[s][j] = fmaf(a, cv[j], acc[s][j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float bj = bias[j0 + j];
-#pragma unroll
-    for (int s = 0; s < NODES; ++s)
-      out[(j0 + j) * LDA + s * MP + u] = leaky(acc[s][j] + bj, neg_slope);
-  }
+inline Fit fit_for(const Dims& d, int K) {
+  return fit([&](int TR, int MT) { return (long long)layout_for(d, K, TR, MT).total * 4; }, K);
 }
 
-// dz of the layer below, in place of its activations, rows k < din:
-// act[k][i] := (sum_j dz[j][i] W[j][k]) * leaky'(act[k][i]), W read from its
-// transpose wt [din][ldo] four columns at a time. Thread: unit u (all four
-// nodes) x rows 4kg..4kg+3.
-__device__ void bwd_da(const float* __restrict__ dz, float* __restrict__ act,
-                       const float* __restrict__ wt, int din, int ldo, float neg_slope) {
-  const int u = threadIdx.x & 15, kg = threadIdx.x >> 4;
-  if (4 * kg >= din) return;
-  const int k0 = 4 * kg;
-  const float* wr[4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wr[kk] = wt + min(k0 + kk, din - 1) * ldo;
-  float acc[NODES][4] = {};  // [node][k]
-#pragma unroll
-  for (int j0 = 0; j0 < MAX_WIDTH; j0 += 4) {
-    if (j0 >= ldo) break;
-    float wv[4][4];  // [k][j]
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 c = ld4(wr[kk] + j0);
-      wv[kk][0] = c.x; wv[kk][1] = c.y; wv[kk][2] = c.z; wv[kk][3] = c.w;
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int s = 0; s < NODES; ++s) {
-        const float dv = dz[(j0 + jj) * LDA + s * MP + u];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc[s][kk] = fmaf(dv, wv[kk][jj], acc[s][kk]);
-      }
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int k = k0 + kk;
-    if (k < din) {
-#pragma unroll
-      for (int s = 0; s < NODES; ++s) {
-        float* p = act + k * LDA + s * MP + u;
-        *p = acc[s][kk] * (*p > 0.f ? 1.f : neg_slope);
-      }
-    }
-  }
+// The largest layout a launch may take, for the shared memory reported and
+// set: TR rows of whole item tiles where one row's items fit, else one row in
+// item tiles of MT; past every size, the smallest, which the launcher refuses.
+inline Layout make_layout(const Dims& d, int K) {
+  const Fit f = fit_for(d, K);
+  return f.tr > 0 ? layout_for(d, K, f.tr, f.tr * K) : layout_for(d, K, 1, f.mt > 0 ? f.mt : 4);
 }
 
-// dW[k][j] += sum_i a[k][i] dz[j][i] (k < din, j < dout, dW kept as W^T
-// [din][ldo]) and db[j] += sum_i dz[j][i], over the tile's NI items. A
-// thread owns rows kb + ks*{0,1,2,3} (consecutive lanes, consecutive rows:
-// other banks) and columns 2jt, 2jt+1.
-__device__ void bwd_dw(const float* __restrict__ a, const float* __restrict__ dz,
-                       float* __restrict__ dw, float* __restrict__ db, int din, int dout,
-                       int ldo) {
-  const int ks = (din + 3) / 4;
-  const int ntiles = ks * ((dout + 1) / 2);
-  for (int t = threadIdx.x; t < ntiles; t += NTHREADS) {
-    const int kb = t % ks, j0 = 2 * (t / ks);
-    const float* ar[4];
-    const float* dr[2];
+// The layout and grid of a launch for R rows on `slots` resident blocks.
+inline Layout launch_layout(const Dims& d, int K, int R, int slots, int* grid) {
+  const Fit f = fit_for(d, K);
+  const int TR = f.tr > 0 ? rows_per_tile(R, slots, f.tr) : 1;
+  const int tiles = (R + TR - 1) / TR;
+  *grid = tiles < slots ? tiles : slots;
+  return f.tr > 0 ? layout_for(d, K, TR, TR * K) : layout_for(d, K, 1, f.mt > 0 ? f.mt : 4);
+}
+
+// A hidden layer's dW and db over the item tile: dW[j][k] += sum_m dz[j][m]
+// a[k][m] (dW in nn.Linear's layout, [dout][din]), db[j] += sum_m dz[j][m].
+// dW: warp w rows 4w .. 4w + 3 (clamped to the last row, not written), lane
+// k a column (lanes past din read the last one), 4 items a 16-byte load.
+// db: 8 threads a row, every 8th group of 4 items, meeting by shuffles.
+__device__ __forceinline__ void dw_product(const float* __restrict__ a,
+                                           const float* __restrict__ dz, float* dw, float* db,
+                                           int din, int dout, int MTp, int LDA) {
+  const int lane = threadIdx.x & 31, j0 = 4 * (threadIdx.x >> 5);
+  if (j0 < dout) {
+    const float* ar = a + min(lane, din - 1) * LDA;
+    const float* dr[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) ar[i] = a + min(kb + ks * i, din - 1) * LDA;
+    for (int i = 0; i < 4; ++i) dr[i] = dz + min(j0 + i, dout - 1) * LDA;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int m = 0; m < MTp; m += 4) {
+      const float4 v = ld4(ar + m);
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) dr[jj] = dz + min(j0 + jj, dout - 1) * LDA;
-    float acc[4][2] = {};
-#pragma unroll 4
-    for (int m = 0; m < NI; m += 4) {
-      float4 av[4], dv[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = ld4(ar[i] + m);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) dv[jj] = ld4(dr[jj] + m);
+      for (int i = 0; i < 4; ++i) {
+        const float4 u = ld4(dr[i] + m);
+        acc[i] = fmaf(u.x, v.x, acc[i]);
+        acc[i] = fmaf(u.y, v.y, acc[i]);
+        acc[i] = fmaf(u.z, v.z, acc[i]);
+        acc[i] = fmaf(u.w, v.w, acc[i]);
+      }
+    }
+    if (lane < din)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          float s = acc[i][jj];
-          s = fmaf(av[i].x, dv[jj].x, s);
-          s = fmaf(av[i].y, dv[jj].y, s);
-          s = fmaf(av[i].z, dv[jj].z, s);
-          s = fmaf(av[i].w, dv[jj].w, s);
-          acc[i][jj] = s;
-        }
+        if (j0 + i < dout) dw[(j0 + i) * din + lane] += acc[i];
+  }
+  const int j = threadIdx.x >> 3, part = threadIdx.x & 7;
+  float c = 0.f;
+  if (j < dout)
+    for (int m = 4 * part; m < MTp; m += 32) {
+      const float4 u = ld4(dz + j * LDA + m);
+      c += u.x + u.y + u.z + u.w;
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int k = kb + ks * i, j = j0 + jj;
-        if (k < din && j < dout) dw[k * ldo + j] += acc[i][jj];
-      }
-  }
-  for (int j = threadIdx.x; j < dout; j += NTHREADS) {
-    float acc = 0.f;
-    for (int m = 0; m < NI; ++m) acc += dz[j * LDA + m];
-    db[j] += acc;
-  }
+  c += __shfl_xor_sync(0xffffffffu, c, 1);
+  c += __shfl_xor_sync(0xffffffffu, c, 2);
+  c += __shfl_xor_sync(0xffffffffu, c, 4);
+  if (part == 0 && j < dout) db[j] += c;
 }
 
-// params: for each layer l, W_l transposed, [w[l]][w[l+1]] row-major, then
-// b_l [w[l+1]] (the forward kernels' layout). partial: gridDim.x slices of
-// the flat gradient (per layer dW [dout][din], then db).
-__global__ void __launch_bounds__(NTHREADS, 3)
+// partial: gridDim.x slices of the flat gradient (per layer dW [dout][din],
+// then db). W: the layers' own tensors. L: launch_layout(...), computed on
+// the host, so that the kernel reads it from the constant bank.
+__global__ void __launch_bounds__(NTHREADS, 1)
 integrand_bwd_p4_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                        const float* __restrict__ params, const float* __restrict__ nodes,
+                        const __grid_constant__ Weights W, const float* __restrict__ nodes,
                         const float* __restrict__ ccw, const float* __restrict__ g,
                         float* __restrict__ dx, float* __restrict__ dh, float* __restrict__ S,
-                        float* __restrict__ partial, int R, int K, Dims d, float neg_slope) {
+                        float* __restrict__ partial, int R, int K,
+                        const __grid_constant__ Dims d, const __grid_constant__ Layout L,
+                        float neg_slope) {
   extern __shared__ __align__(16) float sm[];
-  const Layout L = make_layout(d, K);
   const int tid = threadIdx.x;
-  const int nl = d.n_layers;
-  const int F = d.w[0], e = F - 1, H1 = d.w[1], ld0 = L.ldw[0];
-  const int dl = d.w[nl - 1], ldl = L.ldw[nl - 2];
-  const int K4 = (K + NODES - 1) / NODES, Kp = NODES * K4;
+  const int nl = d.n_layers, F = d.w[0], e = F - 1, H1 = d.w[1], dl = d.w[nl - 1];
+  const int TR = L.TR, MTp = L.MTp, LDA = L.LDA, ldr = L.ldr, ldfw = L.ldfw;
+  const int ld0 = L.ld[0];
 
-  // Stage the weights, zero-padded to ldw columns; zero the dW/db sums.
-  const float* p = params;
-  for (int i = tid; i < F * ld0; i += NTHREADS) {
-    const int k = i / ld0, j = i % ld0;
-    sm[L.w1t + i] = j < H1 ? p[k * H1 + j] : 0.f;
-  }
-  p += F * H1;
-  for (int j = tid; j < ld0; j += NTHREADS) sm[L.b1 + j] = j < H1 ? p[j] : 0.f;
-  p += H1;
-  for (int l = 1; l < nl - 1; ++l) {
-    const int din = d.w[l], dout = d.w[l + 1], ldo = L.ldw[l];
-    for (int i = tid; i < din * ldo; i += NTHREADS) {
-      const int k = i / ldo, j = i % ldo;
-      sm[L.hid_w[l] + i] = j < dout ? p[k * dout + j] : 0.f;
+  // Stage the weights once, from the layers' own tensors, and the first row
+  // tile's x, g and h, every copy in flight (cp.async); zero the dW/db sums.
+  float* xs = sm + L.xs;
+  float* gs = sm + L.gs;
+  float* hs = sm + L.hs;
+  auto stage_rows = [&](int tile) {  // a row tile's x, g and h
+    const int row0 = tile * TR, rows = min(TR, R - row0);
+    for (int r = tid; r < rows; r += NTHREADS) {
+      cp_async4(xs + r, x + row0 + r);
+      cp_async4(gs + r, g + row0 + r);
     }
-    p += dout * din;
-    for (int j = tid; j < ldo; j += NTHREADS) sm[L.hid_b[l] + j] = j < dout ? p[j] : 0.f;
-    p += dout;
-  }
-  for (int k = tid; k <= ldl; k += NTHREADS)
-    sm[L.wout + k] = k < dl ? p[k] : (k == ldl ? p[dl] : 0.f);  // the bias at ldl
-  for (int i = tid; i < L.nweights; i += NTHREADS) sm[L.grad + i] = 0.f;
-  for (int n = tid; n < Kp; n += NTHREADS) {
-    // padding nodes up to a multiple of 4: t = -1 (s = 0), weight 0
-    sm[L.s + n] = n < K ? (nodes[n] + 1.f) * 0.5f : 0.f;
-    sm[L.ccw + n] = n < K ? ccw[n] : 0.f;
-  }
-  __syncthreads();
+    const float* hg = h + (size_t)row0 * e;
+    for (int i = tid; i < rows * e; i += NTHREADS) cp_async4(hs + i, hg + i);
+  };
 
-  const float* w1t = sm + L.w1t;
+  stage_layer1(sm + L.w1, sm + L.b1, W.w[0], W.b[0], F, H1, ld0, L.ldw1);
+  for (int l = 1; l < nl - 1; ++l)
+    stage_hidden(sm + L.wn[l], sm + L.bias[l], W.w[l], W.b[l], d.w[l], d.w[l + 1], L.ld[l - 1],
+                 L.ld[l]);
+  stage_output_and_nodes(sm + L.wout, sm + L.bout, sm + L.s, sm + L.ccw, W.w[nl - 1],
+                         W.b[nl - 1], dl, L.ld[nl - 2], nodes, ccw, K);
+  stage_rows(blockIdx.x);
+  for (int i = tid; i < L.P; i += NTHREADS) sm[L.sums + i] = 0.f;
+
+  const float* w1 = sm + L.w1;
+  const int ldw1 = L.ldw1;
   const float* wout = sm + L.wout;
   const float* sn = sm + L.s;
   const float* cw = sm + L.ccw;
-  float* gw = sm + L.grad;  // dW/db sums, at the weights' offsets
+  float* sums = sm + L.sums;
   float* ph = sm + L.ph;
+  float* xw = sm + L.xw;
   float* dzsum = sm + L.dzsum;
-  float* xs = sm + L.xs;
-  float* gs = sm + L.gs;
+  float* xpart = sm + L.xpart;
   float* fw = sm + L.fw;
   float* vx = sm + L.vx;
   float* dzl = sm + L.dzl;
-  const int PQ = TR * K4;  // unit q = r*K4 + jg of the row tile: nodes 4jg..4jg+3
+  float* aL = sm + L.act[nl - 2];
   const int n_tiles = (R + TR - 1) / TR;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * TR;
-    // Rows past R get x = g = 0 and h = 0: every cotangent of theirs is 0.
-    for (int r = tid; r < TR; r += NTHREADS) {
-      const bool ok = row0 + r < R;
-      xs[r] = ok ? x[row0 + r] : 0.f;
-      gs[r] = ok ? g[row0 + r] : 0.f;
-    }
-    // Node-invariant first layer, once per row: ph = h W1[:, 1:]^T + b1.
-    for (int i = tid; i < TR * ld0; i += NTHREADS) {
-      const int r = i / ld0, j = i % ld0;
-      float acc = 0.f;
-      if (row0 + r < R) {
-        const float* hr = h + (size_t)(row0 + r) * e;
-        for (int k = 0; k < e; ++k) acc = fmaf(hr[k], w1t[(k + 1) * ld0 + j], acc);
-      }
-      ph[i] = acc + sm[L.b1 + j];
-      dzsum[i] = 0.f;
-    }
+    const int row0 = tile * TR, rows = min(TR, R - row0);
+    // The row tile's x, g and h (the first's are in flight already); zero
+    // its node sums of dz1.
+    if (tile != (int)blockIdx.x) stage_rows(tile);
+    for (int i = tid; i < TR * ldr; i += NTHREADS) dzsum[i] = xpart[i] = 0.f;
+    cp_async_wait_all();
+    if (tile == (int)blockIdx.x) nodes_to_s(sm + L.s, K);
+    __syncthreads();
+    // Node-invariant first layer, once per row.
+    first_layer_rows(ph, xw, hs, xs, w1, sm + L.b1, rows, e, ld0, ldw1, ldr);
     __syncthreads();
 
-    for (int q0 = 0; q0 < PQ; q0 += MP) {
-      // Forward again, keeping every hidden activation; layer 1 for the four
-      // nodes of each unit from ph and the rank-1 node term.
-      float* a0 = sm + L.act[0];
-      for (int i = tid; i < ld0 * MP; i += NTHREADS) {
-        const int j = i / MP, m = i % MP, q = q0 + m;
-        float v[NODES] = {};
-        if (q < PQ) {
-          const int r = q / K4, n = NODES * (q - r * K4);
-          const float phr = ph[r * ld0 + j], xw = xs[r] * w1t[j];
-#pragma unroll
-          for (int s = 0; s < NODES; ++s) v[s] = leaky(fmaf(sn[n + s], xw, phr), neg_slope);
-        }
-#pragma unroll
-        for (int s = 0; s < NODES; ++s) a0[j * LDA + s * MP + m] = v[s];
-      }
+    const int PQ = rows * K;
+    for (int p0 = 0; p0 < PQ; p0 += L.MT) {
+      const int mt = min(L.MT, PQ - p0);
+      // Forward again, keeping every hidden activation: layer 1 from ph and
+      // the rank-1 node term (items past the row tile: 0).
+      layer1(sm + L.act[0], ph, xw, sn, p0, mt, MTp, LDA, K, ld0, ldr, neg_slope);
       __syncthreads();
+      // Hidden layers.
       for (int l = 1; l < nl - 1; ++l) {
-        fwd_layer(sm + L.act[l - 1], sm + L.act[l], sm + L.hid_w[l], sm + L.hid_b[l], d.w[l],
-                  L.ldw[l], neg_slope);
+        product<false>(sm + L.act[l - 1], sm + L.act[l], sm + L.wn[l], sm + L.bias[l],
+                       L.ld[l - 1], L.ld[l], MTp, LDA, neg_slope);
         __syncthreads();
       }
       // Output layer: f, its quadrature term, and the item's cotangent
       // dzL = w_n g_r x_r/2 * min(f, 1) (items past the row tile get 0).
-      float* aL = sm + L.act[nl - 2];
-      for (int i = tid; i < NI; i += NTHREADS) {
-        const int slot = i / MP, m = i % MP, q = q0 + m;
+      const float bout = sm[L.bout];
+      for (int m = tid; m < MTp; m += NTHREADS) {
         float dz = 0.f;
-        if (q < PQ) {
-          const int r = q / K4, n = NODES * (q - r * K4) + slot;
-          float z = 0.f;
-          for (int k = 0; k < dl; ++k) z = fmaf(aL[k * LDA + i], wout[k], z);
-          z += wout[ldl];
+        if (m < mt) {
+          const int q = p0 + m, r = q / K, n = q - r * K;
+          const float z = output_z(aL + m, wout, bout, dl, LDA);
           const float f = z > 0.f ? z + 1.f : expf(z);  // ELU + 1
-          fw[r * Kp + n] = cw[n] * f;
+          fw[r * ldfw + n] = cw[n] * f;
           dz = cw[n] * gs[r] * xs[r] * 0.5f * fminf(f, 1.f);
         }
-        dzl[i] = dz;
+        dzl[m] = dz;
       }
       __syncthreads();
-      // The output layer's dW (one row) and db.
-      for (int k = tid; k <= dl; k += NTHREADS) {
-        float acc = 0.f;
+      // Four threads per unit k of the last hidden layer: the output layer's
+      // dW row (k = dl: its db, the sum of dzL) and the rank-1 dz of that
+      // layer in place (padded units keep their 0); each thread every 4th
+      // group of 4 items, the four sums meeting by two shuffles.
+      {
+        const int k = tid >> 2, part = tid & 3;
+        float c = 0.f;
         if (k < dl) {
-          for (int i = 0; i < NI; ++i) acc = fmaf(aL[k * LDA + i], dzl[i], acc);
-          gw[L.wout + k] += acc;
-        } else {
-          for (int i = 0; i < NI; ++i) acc += dzl[i];
-          gw[L.wout + ldl] += acc;
+          float* pa = aL + k * LDA;
+          const float wk = wout[k];
+          for (int m = 4 * part; m < MTp; m += 16) {
+            const float4 a = ld4(pa + m), z = ld4(dzl + m);
+            c = fmaf(a.x, z.x, c);
+            c = fmaf(a.y, z.y, c);
+            c = fmaf(a.z, z.z, c);
+            c = fmaf(a.w, z.w, c);
+            st4(pa + m, z.x * wk * (a.x > 0.f ? 1.f : neg_slope),
+                z.y * wk * (a.y > 0.f ? 1.f : neg_slope), z.z * wk * (a.z > 0.f ? 1.f : neg_slope),
+                z.w * wk * (a.w > 0.f ? 1.f : neg_slope));
+          }
+        } else if (k == dl) {
+          for (int m = 4 * part; m < MTp; m += 16) {
+            const float4 z = ld4(dzl + m);
+            c += z.x + z.y + z.z + z.w;
+          }
         }
+        c += __shfl_xor_sync(0xffffffffu, c, 1);
+        c += __shfl_xor_sync(0xffffffffu, c, 2);
+        if (part == 0 && k <= dl) sums[k < dl ? L.pw[nl - 1] + k : L.pb[nl - 1]] += c;
       }
       __syncthreads();
-      // dz of the last hidden layer, in place of its activations (padded rows
-      // have wout = 0 and stay 0).
-      for (int i = tid; i < ldl * NI; i += NTHREADS) {
-        const int k = i / NI, m = i % NI;
-        const float a = aL[k * LDA + m];
-        aL[k * LDA + m] = dzl[m] * wout[k] * (a > 0.f ? 1.f : neg_slope);
-      }
-      __syncthreads();
+      // Each hidden layer from the last down: its dW and db, then the dz of
+      // the layer below in place of that layer's activations.
       for (int l = nl - 2; l >= 1; --l) {
-        bwd_dw(sm + L.act[l - 1], sm + L.act[l], gw + L.hid_w[l], gw + L.hid_b[l], d.w[l],
-               d.w[l + 1], L.ldw[l]);
+        dw_product(sm + L.act[l - 1], sm + L.act[l], sums + L.pw[l], sums + L.pb[l], d.w[l],
+                   d.w[l + 1], MTp, LDA);
         __syncthreads();
-        bwd_da(sm + L.act[l], sm + L.act[l - 1], sm + L.hid_w[l], d.w[l], L.ldw[l], neg_slope);
+        // The dz of the layer below, in place.
+        product<true>(sm + L.act[l], sm + L.act[l - 1], sm + L.wn[l], nullptr, L.ld[l],
+                      L.ld[l - 1], MTp, LDA, neg_slope);
         __syncthreads();
       }
-      // Layer 1: act[0] now holds dz1. The node axis collapses here, each
-      // sum taken by one thread in (unit, node) order.
-      const float* dz1 = sm + L.act[0];
-      for (int i = tid; i < H1 + NI; i += NTHREADS) {
-        if (i < H1) {  // column j: dW1[j][0] and dz_sum[:, j]
-          const int j = i;
-          float accx = 0.f;
-          for (int m = 0; m < MP && q0 + m < PQ; ++m) {
-            const int q = q0 + m, r = q / K4, n = NODES * (q - r * K4);
-            float sum = 0.f;
-#pragma unroll
-            for (int s = 0; s < NODES; ++s) {
-              const float v = dz1[j * LDA + s * MP + m];
-              accx = fmaf(sn[n + s] * xs[r], v, accx);
-              sum += v;
-            }
-            dzsum[r * ld0 + j] += sum;
+      // Layer 1: act[0] now holds dz1, and the node axis collapses. A thread
+      // per item: x's node path s_n (dz1 . W1[:, 0]). A thread per (row,
+      // unit): the row's items of this tile in node order, into dz_sum and
+      // dW1[:, 0]'s part of the row.
+      {
+        const float* dz1 = sm + L.act[0];
+        for (int m = tid; m < mt; m += NTHREADS) {
+          const int q = p0 + m, r = q / K, n = q - r * K;
+          float acc = 0.f;
+          for (int j = 0; j < H1; ++j) acc = fmaf(dz1[j * LDA + m], w1[j * ldw1], acc);
+          vx[r * ldfw + n] = sn[n] * acc;
+        }
+        const int r0 = p0 / K, nr = (p0 + mt - 1) / K - r0 + 1;
+        for (int i = tid; i < nr * H1; i += NTHREADS) {
+          const int j = i / nr, r = r0 + i - j * nr;
+          const int q0 = max(r * K, p0), q1 = min(r * K + K, p0 + mt);
+          const float* v = dz1 + j * LDA - p0;
+          const float* sr = sn - r * K;
+          const float xr = xs[r];
+          float run = 0.f, accx = 0.f;
+          for (int q = q0; q < q1; ++q) {
+            run += v[q];
+            accx = fmaf(sr[q] * xr, v[q], accx);
           }
-          gw[L.w1t + j] += accx;
-        } else {  // item: s_n (dz1 . W1[:, 0]), x's node path
-          const int it = i - H1, slot = it / MP, m = it % MP, q = q0 + m;
-          if (q < PQ) {
-            const int r = q / K4, n = NODES * (q - r * K4) + slot;
-            float acc = 0.f;
-            for (int j = 0; j < H1; ++j) acc = fmaf(dz1[j * LDA + it], w1t[j], acc);
-            vx[r * Kp + n] = sn[n] * acc;
-          }
+          dzsum[r * ldr + j] += run;
+          xpart[r * ldr + j] += accx;
         }
       }
       __syncthreads();
     }
 
-    // The row tile's node sums, in node order.
-    for (int r = tid; r < TR; r += NTHREADS) {
-      if (row0 + r < R) {
-        float s_r = 0.f, dxn = 0.f;
-        for (int n = 0; n < K; ++n) {
-          s_r += fw[r * Kp + n];
-          dxn += vx[r * Kp + n];
-        }
-        S[row0 + r] = s_r;
-        dx[row0 + r] = dxn + gs[r] * s_r * 0.5f;  // + the product-rule term
+    // The row tile's node sums, in node order, on the last threads (dh
+    // keeps the first ones busy).
+    for (int r = NTHREADS - 1 - tid; r < rows; r += NTHREADS) {
+      float s_r = 0.f, dxn = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < K; ++n) {
+        s_r += fw[r * ldfw + n];
+        dxn += vx[r * ldfw + n];
       }
+      S[row0 + r] = s_r;
+      dx[row0 + r] = dxn + gs[r] * s_r * 0.5f;  // + the product-rule term
     }
-    // dh = dz_sum W1[:, 1:].
-    for (int i = tid; i < TR * e; i += NTHREADS) {
-      const int r = i / e, k = i % e;
-      if (row0 + r < R) {
-        float acc = 0.f;
-        for (int j = 0; j < H1; ++j) acc = fmaf(dzsum[r * ld0 + j], w1t[(k + 1) * ld0 + j], acc);
-        dh[(size_t)(row0 + r) * e + k] = acc;
-      }
+    // dh = dz_sum W1[:, 1:], a thread per (row, input).
+    for (int i = tid; i < rows * e; i += NTHREADS) {
+      const int r = i / e, k = i - r * e;
+      const float* dzr = dzsum + r * ldr;
+      float acc = 0.f;
+      for (int j = 0; j < H1; ++j) acc = fmaf(dzr[j], w1[j * ldw1 + 1 + k], acc);
+      dh[(size_t)row0 * e + i] = acc;
     }
-    // dW1[:, 1:] += dz_sum^T h; db1 += sum_r dz_sum.
-    for (int i = tid; i < F * H1; i += NTHREADS) {
-      const int k = i / H1, j = i % H1;
+    // dW1 += [x's part | dz_sum^T h], a thread per (unit, column); db1 +=
+    // sum_r dz_sum on the last threads.
+    for (int i = tid; i < H1 * F; i += NTHREADS) {
+      const int j = i / F, k = i - j * F;
       float acc = 0.f;
       if (k == 0) {
-        for (int r = 0; r < TR; ++r) acc += dzsum[r * ld0 + j];
-        gw[L.b1 + j] += acc;
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) acc += xpart[r * ldr + j];
       } else {
-        for (int r = 0; r < TR && row0 + r < R; ++r)
-          acc = fmaf(h[(size_t)(row0 + r) * e + k - 1], dzsum[r * ld0 + j], acc);
-        gw[L.w1t + k * ld0 + j] += acc;
+#pragma unroll 4
+        for (int r = 0; r < rows; ++r) acc = fmaf(hs[r * e + k - 1], dzsum[r * ldr + j], acc);
       }
+      sums[L.pw[0] + i] += acc;
+    }
+    for (int j = NTHREADS - 1 - tid; j < H1; j += NTHREADS) {
+      float acc = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) acc += dzsum[r * ldr + j];
+      sums[L.pb[0] + j] += acc;
     }
     __syncthreads();
   }
 
-  // This block's dW/db sums into its slice, in nn.Linear's layout.
-  int pw[MAX_LAYERS], pb[MAX_LAYERS];
-  const int P = param_offsets(d, pw, pb);
-  float* part = partial + (size_t)blockIdx.x * P;
-  for (int i = tid; i < H1 * F; i += NTHREADS) {
-    const int j = i / F, k = i % F;
-    part[pw[0] + i] = gw[L.w1t + k * ld0 + j];
-  }
-  for (int j = tid; j < H1; j += NTHREADS) part[pb[0] + j] = gw[L.b1 + j];
-  for (int l = 1; l < nl - 1; ++l) {
-    const int din = d.w[l], dout = d.w[l + 1], ldo = L.ldw[l];
-    for (int i = tid; i < dout * din; i += NTHREADS) {
-      const int j = i / din, k = i % din;
-      part[pw[l] + i] = gw[L.hid_w[l] + k * ldo + j];
-    }
-    for (int j = tid; j < dout; j += NTHREADS) part[pb[l] + j] = gw[L.hid_b[l] + j];
-  }
-  for (int k = tid; k < dl; k += NTHREADS) part[pw[nl - 1] + k] = gw[L.wout + k];
-  if (tid == 0) part[pb[nl - 1]] = gw[L.wout + ldl];
+  // This block's dW/db sums into its slice.
+  float* part = partial + (size_t)blockIdx.x * L.P;
+  for (int i = tid; i < L.P; i += NTHREADS) part[i] = sums[i];
 }
 
-// out[p] = sum over the grid's blocks, in block order, of partial[b][p].
-__global__ void integrand_bwd_p4_reduce(const float* __restrict__ partial,
-                                        float* __restrict__ out, int P, int blocks) {
-  sum_partials(partial, out, P, blocks);
-}
-
-// Checks the widths and the shared memory against the card and sets the
-// kernel's dynamic shared memory; the byte count on success.
-cudaError_t prepare(int K, const int* widths, int n_layers, Dims* d, int* bytes) {
-  if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_WIDTH, d))
-    return cudaErrorInvalidValue;
-  *bytes = make_layout(*d, K).total * (int)sizeof(float);
-  return set_smem(integrand_bwd_p4_kernel, *bytes);
+// out[p] = sum over the grid's blocks of partial[b][p] in a fixed order:
+// block i takes parameters 32i .. 32i + 31, a lane each; warp w sums the
+// slices w, w + 8, ... in order, then lane p of warp 0 the 8 warps' sums.
+__global__ void __launch_bounds__(NTHREADS)
+integrand_bwd_p4_reduce(const float* __restrict__ partial, float* __restrict__ out, int P,
+                        int blocks) {
+  __shared__ float warp_sums[NWARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, p = blockIdx.x * 32 + lane;
+  float acc = 0.f;
+  if (p < P)
+    for (int b = warp; b < blocks; b += NWARPS) acc += partial[(size_t)b * P + p];
+  warp_sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && p < P) {
+    float s = warp_sums[0][lane];
+    for (int w = 1; w < NWARPS; ++w) s += warp_sums[w][lane];
+    out[p] = s;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the kernel needs for these widths and node count, in bytes;
-// -1 if the widths are outside what the kernel takes (1 + e and every hidden
-// width at most 32, one output).
+// Shared memory the kernel needs at most for these widths and node count,
+// in bytes (a launch's row tile may take less); -1 if the widths are outside
+// what the kernel takes (1 + e and every hidden width at most 32, 2 to
+// MAX_LAYERS layers, one output).
 long long umnn_integrand_bwd_p4_smem_bytes(int K, const int* widths, int n_layers) {
   Dims d;
   if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_WIDTH, &d)) return -1;
   return (long long)make_layout(d, K).total * sizeof(float);
 }
 
-// Blocks of the persistent grid for R rows: as many as are resident on the
-// card at once (blocks per SM for this shared memory, times the SMs), at
-// most one per row tile, so no block is left without a tile. It is also the
-// number of partial-sum slices the caller allocates. A negative CUDA error
-// code on failure.
-int umnn_integrand_bwd_p4_grid(int R, int K, const int* widths, int n_layers) {
+// Once per widths, K and device: checks them, lets the kernel take the
+// card's opt-in shared memory and returns the blocks resident on the card
+// at once with the largest layout of these widths and K (blocks per SM,
+// times the SMs): the `slots` of the launcher, and the partial-sum slices
+// the caller allocates. A negative CUDA error code on failure.
+int umnn_integrand_bwd_p4_slots(int K, const int* widths, int n_layers) {
   Dims d;
-  int bytes = 0, dev = 0, sms = 0, per_sm = 0;
-  if (R < 1) return -(int)cudaErrorInvalidValue;
-  cudaError_t err = prepare(K, widths, n_layers, &d, &bytes);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (K < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_WIDTH, &d))
+    return -(int)cudaErrorInvalidValue;
+  return resident_blocks(integrand_bwd_p4_kernel,
+                         (long long)make_layout(d, K).total * sizeof(float));
+}
+
+// The sweep's launch shape for R rows, for reports: out[0] threads per block,
+// out[1] shared bytes of the launch, out[2] resident blocks per SM, out[3]
+// registers per thread, out[4] items per item tile, out[5] rows per row
+// tile, out[6] blocks, out[7] slices summed by the reduction (one per
+// block). Returns a CUDA error code (cudaErrorInvalidValue for widths the
+// kernel cannot take).
+int umnn_integrand_bwd_p4_occupancy(int R, int K, const int* widths, int n_layers, int* out) {
+  Dims d;
+  const int slots = umnn_integrand_bwd_p4_slots(K, widths, n_layers);
+  if (slots < 1) return -slots;
+  if (R < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_WIDTH, &d)) return cudaErrorInvalidValue;
+  int grid = 0, per_sm = 0;
+  const Layout L = launch_layout(d, K, R, slots, &grid);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, integrand_bwd_p4_kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, integrand_bwd_p4_kernel,
-                                                        NTHREADS, bytes);
-  if (err != cudaSuccess) return -(int)err;
-  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
-  const int tiles = (R + TR - 1) / TR;
-  return tiles < per_sm * sms ? tiles : per_sm * sms;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, integrand_bwd_p4_kernel, NTHREADS,
+        (size_t)make_layout(d, K).total * sizeof(float));
+  if (err != cudaSuccess) return err;
+  out[0] = NTHREADS;
+  out[1] = L.total * (int)sizeof(float);
+  out[2] = per_sm;
+  out[3] = attr.numRegs;
+  out[4] = L.MT;
+  out[5] = L.TR;
+  out[6] = grid;
+  out[7] = grid;
+  return cudaSuccess;
 }
 
 // Launches the sweep and the partial-sum reduction on `stream`; returns
 // cudaGetLastError() after them (cudaErrorInvalidValue for widths, shared
-// memory or a grid the kernel cannot take). partial holds blocks x P floats,
-// dparams P, with P the integrand's parameter count.
-int umnn_integrand_bwd_p4(const float* x, const float* h, const float* params,
+// memory or slots the kernel cannot take). layers: the device addresses
+// of each layer's weight ([dout][din], nn.Linear's layout) and bias, w0, b0,
+// w1, b1, ...; slots: umnn_integrand_bwd_p4_slots's count for these widths
+// and K on this device; partial holds slots x P floats, dparams P, with P
+// the integrand's parameter count, and every element of dparams is written.
+int umnn_integrand_bwd_p4(const float* x, const float* h, const float* const* layers,
                           const float* nodes, const float* ccw, const float* g, float* dx,
                           float* dh, float* S, float* partial, float* dparams, int R, int K,
-                          int blocks, const int* widths, int n_layers, float neg_slope,
+                          int slots, const int* widths, int n_layers, float neg_slope,
                           void* stream) {
   Dims d;
-  int bytes = 0;
-  if (R < 1 || blocks < 1) return cudaErrorInvalidValue;
-  cudaError_t err = prepare(K, widths, n_layers, &d, &bytes);
-  if (err != cudaSuccess) return err;
-  int pw[MAX_LAYERS], pb[MAX_LAYERS];
-  const int P = param_offsets(d, pw, pb);
+  if (R < 1 || K < 1 || slots < 1 || !make_dims(widths, n_layers, MAX_WIDTH, MAX_WIDTH, &d))
+    return cudaErrorInvalidValue;
+  int grid = 0;
+  const Layout L = launch_layout(d, K, R, slots, &grid);
+  if ((long long)L.total * sizeof(float) > SMEM_LIMIT) return cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  integrand_bwd_p4_kernel<<<blocks, NTHREADS, (size_t)bytes, st>>>(
-      x, h, params, nodes, ccw, g, dx, dh, S, partial, R, K, d, neg_slope);
-  err = cudaGetLastError();
+  integrand_bwd_p4_kernel<<<grid, NTHREADS, (size_t)L.total * sizeof(float), st>>>(
+      x, h, weights_at(layers, n_layers), nodes, ccw, g, dx, dh, S, partial, R, K, d, L,
+      neg_slope);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  integrand_bwd_p4_reduce<<<(P + 255) / 256, 256, 0, st>>>(partial, dparams, P, blocks);
+  integrand_bwd_p4_reduce<<<(L.P + 31) / 32, NTHREADS, 0, st>>>(partial, dparams, L.P, grid);
   return cudaGetLastError();
 }
 

@@ -193,25 +193,6 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c, float e
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, e);
 }
 
-// An asynchronous 4-byte copy from global to shared memory (cp.async): a
-// thread's copies are all in flight at once and take no registers; wait_all
-// waits for them. Compiled for the host, a plain copy.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-#else
-  *dst = *src;
-#endif
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_all;\n" ::);
-#endif
-}
-
 template <int TN>
 __device__ __forceinline__ void fma_tile(float (&acc)[TM][TN], const float4 (&a)[TM / 4],
                                          const float (&b)[TN]) {

@@ -22,7 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "find_nvcc", "load_library", "ptxas_report"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "find_nvcc", "load_library", "parse_ptxas",
+           "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "umnn_tpu_torch"
@@ -47,11 +48,14 @@ SIGNATURES = {
     "umnn_integrand_bwd_p2": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_bwd_p2_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
     "umnn_integrand_bwd_p2_grid": ([_I, _I, _P, _I], _I),
-    "umnn_integrand_fwd_p4": ([_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, ctypes.c_float, _P], _I),
+    "umnn_integrand_fwd_p4": ([_P] * 6 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_fwd_p4_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
+    "umnn_integrand_fwd_p4_slots": ([_I, _P, _I], _I),
+    "umnn_integrand_fwd_p4_occupancy": ([_I, _I, _P, _I, _P], _I),
     "umnn_integrand_bwd_p4": ([_P] * 11 + [_I, _I, _I, _P, _I, ctypes.c_float, _P], _I),
     "umnn_integrand_bwd_p4_smem_bytes": ([_I, _P, _I], ctypes.c_longlong),
-    "umnn_integrand_bwd_p4_grid": ([_I, _I, _P, _I], _I),
+    "umnn_integrand_bwd_p4_slots": ([_I, _P, _I], _I),
+    "umnn_integrand_bwd_p4_occupancy": ([_I, _I, _P, _I, _P], _I),
     "umnn_integrand_fwd_wide": ([_P] * 6 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
     "umnn_integrand_bwd_wide": ([_P] * 10 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
     "umnn_integrand_wide_scratch_floats": ([_I, _I, _P, _I], ctypes.c_longlong),
@@ -132,7 +136,11 @@ def build() -> Path:
 def ptxas_report() -> dict:
     """Per kernel of the built library: ``{"registers", "stack_bytes",
     "spill_stores_bytes", "spill_loads_bytes"}``, from ptxas's output."""
-    text = library_path().with_suffix(".ptxas.txt").read_text()
+    return parse_ptxas(library_path().with_suffix(".ptxas.txt").read_text())
+
+
+def parse_ptxas(text: str) -> dict:
+    """:func:`ptxas_report`'s dictionary from the text ptxas printed."""
     out, name = {}, None
     for line in text.splitlines():
         # the mangled name ends in <length><name>E<parameters>

@@ -2,15 +2,18 @@
 
 Usage, from the root of a checkout on a machine with a CUDA card and nvcc::
 
-    python -m umnn_tpu_torch.ops.bwd_phase_clock [--kernel bwd|bwd_p2]
+    python -m umnn_tpu_torch.ops.bwd_phase_clock [--kernel bwd|bwd_p2|bwd_p4]
         [--rows R] [--calls 5] [--source FILE]
 
 It compiles a copy of the backward kernel (``--kernel bwd``:
 ``csrc/integrand_bwd.cu`` on the MNIST block, widths 31-100-50-50-50-50-1;
 ``--kernel bwd_p2``: ``csrc/integrand_bwd_p2.cu`` on the calibration block,
-widths 31-50-50-50-50-1, 3,000 rows; both 51 nodes, random weights and
-inputs from a seed; ``--source``: another version of the file, e.g. a parent
-commit's, with the same C interface) in which thread 0 of every block adds
+widths 31-50-50-50-50-1, 3,000 rows; both 51 nodes; ``--kernel bwd_p4``:
+``csrc/integrand_bwd_p4.cu`` on the flagship's widths 9-32-32-1 at 4,096
+rows and 17 nodes, the toy flow's node count; random weights and inputs
+from a seed; ``--source``: another version of the file, e.g. a parent
+commit's, with the same C interface, compiled with the headers beside it)
+in which thread 0 of every block adds
 the ``clock64()`` cycles between consecutive ``__syncthreads()`` to one
 counter per barrier, checks its dx against the plain version, and prints the
 cycles per SM and call spent before each barrier (all blocks' counts over
@@ -40,11 +43,15 @@ NODES = 51
 OUT = _build.BUILD_DIR / "phase_clock"
 BWD_MARKERS = ("integrand_bwd_kernel(const float*", "// out[p] = sum over the grid's blocks")
 BWD_P2_MARKERS = ("integrand_bwd_p2_kernel(const float*", "// out[p] = sum over the grid's blocks")
-# per kernel: its source, markers, widths and rows (the MNIST block; the
-# calibration block of examples/train_calibration.py, 500 x 6 rows)
+BWD_P4_MARKERS = ("integrand_bwd_p4_kernel(const float*", "// out[p] = sum over the grid's blocks")
+# per kernel: its source, markers, widths, rows and nodes (the MNIST block;
+# the calibration block of examples/train_calibration.py, 500 x 6 rows; the
+# flagship's integrand at scripts/pack4_ab.py's larger batch, 2,048 x 2
+# rows, at the toy flow's 17 nodes)
 KERNELS = {
-    "bwd": ("integrand_bwd.cu", BWD_MARKERS, WIDTHS, 78400),
-    "bwd_p2": ("integrand_bwd_p2.cu", BWD_P2_MARKERS, [31, 50, 50, 50, 50, 1], 3000),
+    "bwd": ("integrand_bwd.cu", BWD_MARKERS, WIDTHS, 78400, NODES),
+    "bwd_p2": ("integrand_bwd_p2.cu", BWD_P2_MARKERS, [31, 50, 50, 50, 50, 1], 3000, NODES),
+    "bwd_p4": ("integrand_bwd_p4.cu", BWD_P4_MARKERS, [9, 32, 32, 1], 4096, 17),
 }
 
 
@@ -75,8 +82,9 @@ def instrument(src: str, start: str, end: str) -> tuple[str, list[str]]:
     body = "".join(out_lines).replace(
         "extern __shared__ __align__(16) float sm[];",
         "extern __shared__ __align__(16) float sm[];\n  long long t_prev = clock64();")
+    include = re.search(r'#include "[a-z0-9_]+\.cuh"', src).group(0)  # the file's own header
     head = (
-        '#include "common.cuh"\n'
+        f"{include}\n"
         "__device__ unsigned long long g_phase[64];\n"
         "#define TICK(i) do { if (threadIdx.x == 0) { const long long t_now = clock64(); "
         "atomicAdd(&g_phase[i], (unsigned long long)(t_now - t_prev)); "
@@ -90,19 +98,22 @@ def instrument(src: str, start: str, end: str) -> tuple[str, list[str]]:
         "  return cudaMemcpyFromSymbol(out, g_phase, sizeof(unsigned long long) * 64);\n}\n"
     )
     src = src[:start_at] + body + src[end_at:]
-    src = src.replace('#include "common.cuh"', head, 1).replace('extern "C" {', api, 1)
+    src = src.replace(include, head, 1).replace('extern "C" {', api, 1)
     return src, labels
 
 
-def build(source: str, kernel: str, start: str, end: str) -> tuple[ctypes.CDLL, list[str], str]:
+def build(source: str, kernel: str, start: str, end: str,
+          headers: Path = _build.CSRC) -> tuple[ctypes.CDLL, list[str], dict]:
     """The instrumented library of the CUDA source text ``source`` (its
-    kernel ``kernel`` between the markers), its phase labels and ptxas's
-    line for the kernel."""
+    kernel ``kernel`` between the markers, compiled with the ``.cuh`` files
+    of the directory ``headers``), its phase labels and ptxas's report of the
+    kernel (registers, stack and spills)."""
     src, labels = instrument(source, start, end)
     out = OUT / kernel
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    shutil.copy(_build.CSRC / "common.cuh", out / "common.cuh")
+    for header in headers.glob("*.cuh"):
+        shutil.copy(header, out / header.name)
     (out / f"{kernel}_clock.cu").write_text(src)
     lib = out / f"lib{kernel}_clock.so"
     proc = subprocess.run(
@@ -110,12 +121,7 @@ def build(source: str, kernel: str, start: str, end: str) -> tuple[ctypes.CDLL, 
          str(out / f"{kernel}_clock.cu")],
         capture_output=True, text=True, check=True,
     )
-    lines = proc.stderr.splitlines()
-    # after the kernel's "Compiling entry function" line: its stack and
-    # spills, then its registers
-    at = next((i for i, s in enumerate(lines) if "Compiling entry function" in s and kernel in s), None)
-    ptxas = "" if at is None else " | ".join(
-        s.strip() for s in lines[at + 1 : at + 4] if "stack frame" in s or "Used" in s)
+    ptxas = _build.parse_ptxas(proc.stderr).get(kernel, {})
     return ctypes.CDLL(str(lib)), labels, ptxas
 
 
@@ -143,9 +149,10 @@ def report(lib: ctypes.CDLL, labels: list[str], call, calls: int, sms: int) -> N
         print(f"  {i:2d} {cycles:14.0f} {100 * cycles / total:5.1f}%  {label[:70]}")
 
 
-def mnist_inputs(rows: int, dev: torch.device, widths: list = WIDTHS) -> tuple:
+def mnist_inputs(rows: int, dev: torch.device, widths: list = WIDTHS, nodes: int = NODES) -> tuple:
     """Seeded integrand weights at ``widths``, packed as the kernels take
-    them, and h, x, a cotangent g for ``rows`` rows, the nodes and weights."""
+    them, and h, x, a cotangent g for ``rows`` rows, ``nodes`` CC nodes and
+    their weights."""
     from umnn_tpu_torch.nn.core import torch_linear_init
     from umnn_tpu_torch.ops.quadrature import cc_tensors
 
@@ -156,7 +163,26 @@ def mnist_inputs(rows: int, dev: torch.device, widths: list = WIDTHS) -> tuple:
     h = torch.randn(rows, widths[0] - 1, generator=gen).to(dev)
     x = (3 * torch.randn(rows, generator=gen)).to(dev)
     g = torch.randn(rows, generator=gen).to(dev)
-    return layers, params, h, x, g, *cc_tensors(NODES - 1, dev)
+    return layers, params, h, x, g, *cc_tensors(nodes - 1, dev)
+
+
+def layer_pointers(layers) -> ctypes.Array:
+    """Each layer's weight and bias addresses, ``[w0, b0, w1, b1, ...]``: the
+    pack-4 kernels' weights argument (they read ``nn.Linear``'s tensors in
+    place)."""
+    ptrs = [t.data_ptr() for l in layers for t in (l.weight, l.bias)]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def slots(lib: ctypes.CDLL, kernel: str, K: int, p_widths, n_layers: int) -> int:
+    """A pack-4 kernel's resident blocks on the card, from its C helper."""
+    fn = getattr(lib, f"umnn_integrand_{kernel}_slots")
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(K, p_widths, n_layers)
+    if n < 1:
+        raise RuntimeError(f"umnn_integrand_{kernel}_slots failed: CUDA error {-n}")
+    return n
 
 
 def main() -> None:
@@ -166,10 +192,10 @@ def main() -> None:
     ap.add_argument("--calls", type=int, default=5)
     ap.add_argument("--source", type=Path, default=None)
     args = ap.parse_args()
-    file, markers, widths, rows = KERNELS[args.kernel]
+    file, markers, widths, rows, K = KERNELS[args.kernel]
     source = args.source or _build.CSRC / file
     name = f"integrand_{args.kernel}"
-    lib, labels, ptxas = build(source.read_text(), f"{name}_kernel", *markers)
+    lib, labels, ptxas = build(source.read_text(), f"{name}_kernel", *markers, source.parent)
     print(f"source {source}", flush=True)
     print(f"ptxas {name}_kernel:", ptxas, flush=True)
 
@@ -177,17 +203,24 @@ def main() -> None:
 
     dev = torch.device("cuda:0")
     R = args.rows or rows
-    layers, params, h, x, g, nodes, ccw = mnist_inputs(R, dev, widths)
+    layers, params, h, x, g, nodes, ccw = mnist_inputs(R, dev, widths, K)
     e = widths[0] - 1
     c_widths = (ctypes.c_int * len(widths))(*widths)
     p_widths = ctypes.cast(c_widths, ctypes.c_void_p)
+    n_layers = len(widths) - 1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if args.kernel == "bwd":
+    weights, count = params.data_ptr(), sms
+    if args.kernel == "bwd_p4":
+        ptrs = layer_pointers(layers)
+        weights = ctypes.cast(ptrs, ctypes.c_void_p)
+        count = slots(lib, args.kernel, K, p_widths, n_layers)
+        blocks = count
+    elif args.kernel == "bwd":
         blocks = sms
     else:
-        grid = lib.umnn_integrand_bwd_p2_grid
+        grid = getattr(lib, f"umnn_{name}_grid")
         grid.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-        blocks = grid(R, NODES, p_widths, len(widths) - 1)
+        blocks = count = grid(R, K, p_widths, n_layers)
         if blocks < 1:
             raise RuntimeError(f"{name}_grid failed: CUDA error {-blocks}")
     P = params.numel()
@@ -201,9 +234,9 @@ def main() -> None:
     fn.restype = ctypes.c_int
 
     def call() -> None:
-        rc = fn(x.data_ptr(), h.data_ptr(), params.data_ptr(), nodes.data_ptr(), ccw.data_ptr(),
+        rc = fn(x.data_ptr(), h.data_ptr(), weights, nodes.data_ptr(), ccw.data_ptr(),
                 g.data_ptr(), dx.data_ptr(), dh.data_ptr(), S.data_ptr(), partial.data_ptr(),
-                dparams.data_ptr(), R, NODES, blocks, p_widths, len(widths) - 1, 0.01,
+                dparams.data_ptr(), R, K, count, p_widths, n_layers, 0.01,
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
@@ -212,7 +245,7 @@ def main() -> None:
     want = fused_cc_integral_bwd_plain([l.weight.detach() for l in layers],
                                        [l.bias.detach() for l in layers], x, h, nodes, ccw, g)[2]
     err = float((dx - want).abs().max() / want.abs().max())
-    print(f"grid {blocks} blocks; dx's max error against the plain version, over its largest "
+    print(f"grid {count} blocks; dx's max error against the plain version, over its largest "
           f"entry: {err:.3g}", flush=True)
     report(lib, labels, call, args.calls, sms)
 

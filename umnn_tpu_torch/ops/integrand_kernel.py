@@ -20,7 +20,11 @@ pairs:
 - the pack-4 pair, ``csrc/integrand_fwd_p4.cu`` and
   ``csrc/integrand_bwd_p4.cu`` (the ports of `_fwd_kernel_pn`, `:522-570`,
   and `_bwd_kernel_pn`, `:573-700`, with the fold of `_fused_vjp_bwd_pn`),
-  for integrands at most 32 wide, four nodes at a time;
+  for integrands at most 32 wide, the route JAX gives four nodes at a time.
+  They read each layer's weight and bias in place (their addresses are the
+  launch's argument), so this route packs nothing on the host, and their
+  launch configuration (the shared memory set on the kernel, the resident
+  blocks) is asked of the C helpers once per widths, K and device;
 - the streamed pair, ``csrc/integrand_wide.cu``, for what the other three
   pairs' kernels refuse (hidden widths past their limits, more than
   MAX_LAYERS layers, a set past the card's shared memory per block): the
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -309,7 +314,7 @@ def _check(ws, bs, x, h, nodes, ccw, tensors, route) -> tuple:
     K = nodes.numel()
     if K < 1 or ccw.numel() != K:
         raise ValueError(f"{K} nodes but {ccw.numel()} weights")
-    widths = [h.shape[-1] + 1] + [w.shape[0] for w in ws]
+    widths = (h.shape[-1] + 1, *(w.shape[0] for w in ws))
     for l, (w, b) in enumerate(zip(ws, bs)):
         if w.dim() != 2 or w.shape[1] != widths[l] or b.shape != (widths[l + 1],):
             raise ValueError(
@@ -323,26 +328,49 @@ def _check(ws, bs, x, h, nodes, ccw, tensors, route) -> tuple:
     lib = _build.load_library()
     if not all(_staged_takes(lib, kind + route, widths, K, x.device) for kind in ("fwd", "bwd")):
         route = "_wide"
-    return tuple(widths), route
+    return widths, route
 
 
-def _c_widths(widths):
-    """The widths as a C int array, behind a pointer that keeps it alive."""
+@functools.cache
+def _c_widths(widths: tuple):
+    """The widths as a C int array, behind a pointer that keeps it alive;
+    one per set of widths."""
     c_widths = (ctypes.c_int * len(widths))(*widths)
     ptr = ctypes.cast(c_widths, ctypes.c_void_p)
     ptr._keep = c_widths
     return ptr
 
 
-def _staged_takes(lib, kernel: str, widths, K: int, device) -> bool:
+@functools.cache
+def _staged_takes(lib, kernel: str, widths: tuple, K: int, device) -> bool:
     """Whether a staged kernel takes the widths: its own C helper (the one
     authority on its limits) gives a shared-memory size, -1 past MAX_LAYERS
     of csrc/common.cuh or the .cu file's MAX_WIDTH, and the card gives a
-    block that much."""
+    block that much. Asked once per library, kernel, widths, K and device."""
     smem = getattr(lib, f"umnn_integrand_{kernel}_smem_bytes")(K, _c_widths(widths),
                                                                   len(widths) - 1)
     props = torch.cuda.get_device_properties(device)
     return 0 <= smem <= getattr(props, "shared_memory_per_block_optin", smem)
+
+
+@functools.cache
+def _slots(lib, kernel: str, widths: tuple, K: int, device) -> int:
+    """A pack-4 kernel's resident blocks on the card for these widths and K:
+    its C helper lets the kernel take the card's shared memory and counts
+    them, once per library, kernel, widths, K and device."""
+    with _on(device):
+        slots = getattr(lib, f"umnn_integrand_{kernel}_slots")(K, _c_widths(widths),
+                                                               len(widths) - 1)
+    if slots < 1:
+        _raise_on(-slots or 1, lib, f"integrand_{kernel}")
+    return slots
+
+
+def _layer_pointers(ws, bs) -> ctypes.Array:
+    """Each layer's weight and bias addresses, ``[w0, b0, w1, b1, ...]``,
+    which the pack-4 kernels read in place."""
+    ptrs = [t.data_ptr() for w, b in zip(ws, bs) for t in (w, b)]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 @contextlib.contextmanager
@@ -353,7 +381,8 @@ def _on(device):
 
 
 def _packed_params(ws, bs) -> torch.Tensor:
-    """One buffer: per layer W^T ``[din, dout]`` row-major, then b."""
+    """One buffer: per layer W^T ``[din, dout]`` row-major, then b (what the
+    unpacked, pack-2 and streamed pairs take)."""
     return torch.cat([t.reshape(-1) for w, b in zip(ws, bs) for t in (w.T.contiguous(), b)])
 
 
@@ -379,11 +408,19 @@ def _launch_fwd(ws, bs, x, h, nodes, ccw, neg_slope, widths, route) -> torch.Ten
     kernel = "fwd" + route
     K, R, e = nodes.numel(), x.numel(), widths[0] - 1
     lib, ptr, n = _build.load_library(), _c_widths(widths), len(widths) - 1
-    out = torch.empty(R, dtype=torch.float32, device=x.device)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)  # x is contiguous
     if R == 0:
-        return out.reshape(x.shape)
-    params = _packed_params(ws, bs)
+        return out
     fn = getattr(lib, f"umnn_integrand_{kernel}")
+    if route == "_p4":
+        slots = _slots(lib, kernel, widths, K, x.device)
+        with _on(x.device) as stream:
+            rc = fn(x.data_ptr(), h.data_ptr(), _layer_pointers(ws, bs), nodes.data_ptr(),
+                    ccw.data_ptr(), out.data_ptr(), R, K, slots, ptr, n, float(neg_slope), stream)
+        _raise_on(rc, lib, f"integrand_{kernel}")
+        LAUNCHES[f"integrand_{kernel}"] += 1
+        return out
+    params = _packed_params(ws, bs)
     with _on(x.device) as stream:
         if route == "_wide":
             chunks = _wide_chunks(R, K, widths)
@@ -398,7 +435,7 @@ def _launch_fwd(ws, bs, x, h, nodes, ccw, neg_slope, widths, route) -> torch.Ten
                     ccw.data_ptr(), out.data_ptr(), R, K, ptr, n, float(neg_slope), stream)
             _raise_on(rc, lib, f"integrand_{kernel}")
     LAUNCHES[f"integrand_{kernel}"] += 1
-    return out.reshape(x.shape)
+    return out
 
 
 def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
@@ -410,13 +447,29 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not match x")
     dev = x.device
-    n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
-    dx = torch.empty(R, dtype=torch.float32, device=dev)
+    sizes = [t.numel() for w, b in zip(ws, bs) for t in (w, b)]
+    n_params = sum(sizes)
+    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)  # x is contiguous
     dh = torch.empty(h.shape, dtype=torch.float32, device=dev)
-    S = torch.empty(R, dtype=torch.float32, device=dev)
-    # dparams: per layer dW in nn.Linear's [dout, din] layout, then db
-    dparams = torch.zeros(n_params, dtype=torch.float32, device=dev)
-    if R > 0:
+    S = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    # dparams: per layer dW in nn.Linear's [dout, din] layout, then db; the
+    # staged pairs' reductions write every element, the streamed pair adds
+    # into it
+    alloc = torch.zeros if R == 0 or route == "_wide" else torch.empty
+    dparams = alloc(n_params, dtype=torch.float32, device=dev)
+    if R > 0 and route == "_p4":
+        slots = _slots(lib, kernel, widths, K, dev)
+        # one slice of dW/db partial sums per block the grid may have
+        partial = torch.empty(slots * n_params, dtype=torch.float32, device=dev)
+        fn = getattr(lib, f"umnn_integrand_{kernel}")
+        with _on(dev) as stream:
+            rc = fn(x.data_ptr(), h.data_ptr(), _layer_pointers(ws, bs), nodes.data_ptr(),
+                    ccw.data_ptr(), g.data_ptr(), dx.data_ptr(), dh.data_ptr(), S.data_ptr(),
+                    partial.data_ptr(), dparams.data_ptr(), R, K, slots, ptr, n,
+                    float(neg_slope), stream)
+        _raise_on(rc, lib, f"integrand_{kernel}")
+        LAUNCHES[f"integrand_{kernel}"] += 1
+    elif R > 0:
         params = _packed_params(ws, bs)
         fn = getattr(lib, f"umnn_integrand_{kernel}")
         with _on(dev) as stream:
@@ -431,7 +484,7 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
                             scratch.data_ptr(), stream)
                     _raise_on(rc, lib, f"integrand_{kernel}")
             else:
-                # the unpacked grid: one block per SM; the packed grids: as
+                # the unpacked grid: one block per SM; the pack-2 grid: as
                 # many blocks as fit on the card at once, at most one per
                 # row tile
                 grid = getattr(lib, f"umnn_integrand_{kernel}_grid")
@@ -446,10 +499,6 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
                         ptr, n, float(neg_slope), stream)
                 _raise_on(rc, lib, f"integrand_{kernel}")
         LAUNCHES[f"integrand_{kernel}"] += 1
-    dws, dbs, off = [], [], 0
-    for w, b in zip(ws, bs):
-        dws.append(dparams[off : off + w.numel()].view(w.shape))
-        off += w.numel()
-        dbs.append(dparams[off : off + b.numel()].view(b.shape))
-        off += b.numel()
-    return dws, dbs, dx.reshape(x.shape), dh, S.reshape(x.shape)
+    parts = dparams.split(sizes)  # views: dW, db of each layer in turn
+    dws = [d.view(w.shape) for d, w in zip(parts[::2], ws)]
+    return dws, list(parts[1::2]), dx, dh, S
