@@ -83,10 +83,17 @@ scipy. Phases, each printing one flushed JSON line:
            227 KB in the staged forward), nine 64- and nine 24-wide layers
            (the pack-2 and pack-4 routes past MAX_LAYERS), K = 1, K = 2 on
            the unpacked route's eight 64-wide layers, 101 padded nodes, ReLU
-           and x = 0, each call one launch of the pair; bit-identical reruns;
-           a 129-wide flow under "auto" and "kernel" against "torch" (ll and
-           every parameter gradient, 1 + 1 launches per step); its device
-           time, bound and CUDA kernels per call at the timing block;
+           and x = 0, and the product kernel's edges (77 rows, 31-129-129-1,
+           a last chunk of 3 rows, a dW product in 20 slices, h at an
+           address no multiple of 16 bytes), each call one launch of the
+           pair; bit-identical reruns; a 129-wide flow under "auto" and
+           "kernel" against "torch" (ll and every parameter gradient, 1 + 1
+           launches per step); the main path at full width, the training
+           step of examples/train_uci.py's flow with -hidden_derivative 256
+           256 256 256 against "torch" (5 + 5 launches, its step time on
+           both routes); at the timing block its device time per kernel and
+           launch (ops/wide_split.py), CUDA kernels per call, the bound and
+           cuBLAS's time for the same products;
 14. timing CUDA-event medians of whole calls and profiler device times of
            every kernel, their plain versions, compute_bpp and a training
            step of each flow, beside the kernels' bounds; the unpacked pair
@@ -124,7 +131,7 @@ from umnn_tpu_torch.data.images import synthetic_mnist_ar1
 from umnn_tpu_torch.data.toy import inf_train_gen
 from umnn_tpu_torch.examples import train_calibration, train_toy
 from umnn_tpu_torch.nn.core import torch_linear_init
-from umnn_tpu_torch.ops import _build
+from umnn_tpu_torch.ops import _build, wide_split
 from umnn_tpu_torch.ops import integrand_kernel as ik
 from umnn_tpu_torch.ops.quadrature import cc_tensors, padded_cc_quadrature
 from umnn_tpu_torch.training.loops import make_optimizer, make_train_step
@@ -178,6 +185,10 @@ WIDE_WIDTHS = [31, 256, 256, 256, 256, 1]
 WIDE_FLOW = dict(nb_flow=1, nb_in=6, hidden_derivative=(129,), hidden_embedding=(64, 64),
                  embedding_s=30, nb_steps=50)
 WIDE_BATCH = 500
+# The streamed pair's main path at full width: examples/train_uci.py's
+# defaults (the calibration flow's) with -hidden_derivative 256 256 256 256,
+# the timing block's integrand, batch 500; standard normal rows from a seed.
+WIDE_TRAIN_FLOW = dict(CALIB, hidden_derivative=(256, 256, 256, 256))
 NONE_LAUNCHED = {k: 0 for k in ik.LAUNCHES}
 UNPACKED = {"pack2": False, "pack4": False}  # the unpacked pair at any width
 
@@ -1501,21 +1512,6 @@ def phase_toy(dev):
     return flow, step_k, step_p, x_toy, launches
 
 
-def wide_device_ms(fn, n: int = 5) -> tuple:
-    """Device time per call of the streamed pair's kernels (every
-    ``integrand_wide_*`` launch) and their number per call, from a
-    torch.profiler trace of ``n`` calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in _device_events(prof) if "integrand_wide_" in e.key]
-    check(bool(hits), "profiler: no launch of the streamed pair")
-    return (sum(e.device_time_total for e in hits) / n / 1e3, sum(e.count for e in hits) / n)
-
-
 def phase_wide(gen, dev, calib, name):
     """The streamed pair, integrand_fwd_wide and integrand_bwd_wide, on what
     the staged pairs refuse, under backend "auto" (and "kernel" for the
@@ -1524,8 +1520,10 @@ def phase_wide(gen, dev, calib, name):
     (float64 on the kernel's sides of each LeakyReLU kink; the pair's
     forward arithmetic is the one kernel_branches models), each call one
     launch of the pair and nothing else; reruns bit-identical; the 129-wide
-    flow's ll and parameter gradients against backend="torch" (the main
-    path, counted); its device time at the timing block beside the bound."""
+    flow's ll and parameter gradients against backend="torch"; the main path
+    at full width (WIDE_TRAIN_FLOW's training step, counted); at the timing
+    block the device time of each kernel and launch, beside the bound and
+    cuBLAS's time for the same products."""
     t0 = time.perf_counter()
     x_cal = calib[2]
     n51 = cc_tensors(CALIB["nb_steps"], dev)
@@ -1548,11 +1546,25 @@ def phase_wide(gen, dev, calib, name):
         "padded_101_nodes": ([31, 129, 1], 1000, padded_cc_quadrature(50, 100, dev), 0.01, {}),
         "relu_neg_slope_0": ([31, 200, 37, 1], 1000, n51, 0.0, {}),
         "x_zero": ([31, 129, 1], 1000, n51, 0.01, {}),
+        # the product kernel's edges: 3,927 items, no multiple of its
+        # 128-row tiles; widths no multiple of 4 (its scalar instances); a
+        # last chunk of 3 rows (2,570 rows a chunk at these widths); a dW
+        # product's 10,200 items in 20 slices of 512; h at an address no
+        # multiple of 16 bytes with e = 8 (the scalar instance where the
+        # vector one would read misaligned)
+        "items_3927": ([31, 256, 256, 1], 77, n51, 0.01, {}),
+        "widths_31_129_129_1": ([31, 129, 129, 1], 1000, n51, 0.01, {}),
+        "last_chunk_of_3_rows": (WIDE_WIDTHS, 2573, n51, 0.01, {}),
+        "dw_in_20_slices": ([31, 129, 64, 1], 200, n51, 0.01, {}),
+        "h_misaligned": ([9, 132, 132, 1], 1000, cc_tensors(16, dev), 0.01, {}),
     }
     errs, bwd_errs, auto_errs, kinks = {}, {}, {}, {}
     blocks = {}
     for case, (widths, rows, (nodes, ccw), slope, kw) in sets.items():
         ws, bs, h = integrand_inputs(gen, widths, rows, dev)
+        if case == "h_misaligned":
+            h = torch.cat([h.new_zeros(1), h.reshape(-1)])[1:].view(h.shape)
+            check(h.is_contiguous() and h.data_ptr() % 16 != 0, "wide: h must be misaligned")
         x = torch.zeros(rows, device=dev) if case == "x_zero" else x_cal[:rows]
         g = torch.randn(rows, generator=gen).to(dev)
         with torch.inference_mode():
@@ -1601,6 +1613,8 @@ def phase_wide(gen, dev, calib, name):
                                                  again[0] + again[1] + list(again[2:]))),
           "wide: two backward runs must agree bit for bit")
     chunks = len(ik._wide_chunks(x.numel(), nodes.numel(), WIDE_WIDTHS))
+    check([b - a for a, b in ik._wide_chunks(2573, nodes.numel(), WIDE_WIDTHS)][-1] == 3,
+          "wide: case last_chunk_of_3_rows must end in a chunk of 3 rows")
 
     # the main path: the 129-wide flow's ll and gradients on the kernel
     # route against the Leibniz route, under "auto" and "kernel"
@@ -1624,20 +1638,50 @@ def phase_wide(gen, dev, calib, name):
         flows[backend] = {"launches": launches, "loss": loss_err, "ll": ll, **gap}
         plain_flow.zero_grad()
 
+    # the main path at full width: ll and gradients of WIDE_TRAIN_FLOW on
+    # the kernel route against the Leibniz route, then its training step,
+    # every launch counted from 0
+    x1 = torch.as_tensor(np.random.RandomState(6).randn(CALIB_BATCH, CALIB["nb_in"])
+                         .astype(np.float32), device=dev)
+    flow = UMNNMAFFlow(**WIDE_TRAIN_FLOW, backend="auto", seed=0)
+    plain_flow = UMNNMAFFlow(**WIDE_TRAIN_FLOW, backend="torch", seed=0)
+    loss_err, gap = route_gaps(flow, plain_flow, "wide train flow", x1)
+    with torch.inference_mode():
+        ll = compare(flow.compute_ll(x1)[0], plain_flow.compute_ll(x1)[0], SLICE_TOL,
+                     "wide train flow ll")
+    flow.zero_grad()
+    plain_flow.zero_grad()
+    step_k, step_p = trainer(flow), trainer(plain_flow)
+    launches = step_launches(step_k, x1)
+    n = WIDE_TRAIN_FLOW["nb_flow"]
+    want = {**NONE_LAUNCHED, "integrand_fwd_wide": n, "integrand_bwd_wide": n}
+    check(launches == want, f"wide train flow: launches in one step {launches}, want {want}")
+    train = {"widths": [1 + CALIB["embedding_s"], *WIDE_TRAIN_FLOW["hidden_derivative"], 1],
+             "batch": CALIB_BATCH, "launches_per_step": launches, "loss": loss_err, "ll": ll,
+             **gap, "wide_train_step_ms": median_ms(lambda: step_k(x1), n=5, warmup=1),
+             "wide_train_step_plain_ms": median_ms(lambda: step_p(x1), n=5, warmup=1)}
+    del flow, plain_flow, step_k, step_p
+
     # timing at the timing block
     R, K = x.numel(), nodes.numel()
     t = {"rows": R, "nodes": K, "widths": WIDE_WIDTHS, "row_chunks": chunks}
     with torch.inference_mode():
         fwd = lambda: ik.fused_cc_integral(ws, bs, x, h, nodes, ccw)  # noqa: E731
         t["fwd_ms"] = median_ms(fwd, n=5, warmup=1)
-        t["fwd_device_ms"], t["fwd_kernels_per_call"] = wide_device_ms(fwd)
         t["fwd_plain_ms"] = median_ms(
             lambda: ik.fused_cc_integral_plain(ws, bs, x, h, nodes, ccw), n=5, warmup=1)
     bwd = lambda: ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, g)  # noqa: E731
     t["bwd_ms"] = median_ms(bwd, n=5, warmup=1)
-    t["bwd_device_ms"], t["bwd_kernels_per_call"] = wide_device_ms(bwd)
     t["bwd_plain_ms"] = median_ms(
         lambda: ik.fused_cc_integral_bwd_plain(ws, bs, x, h, nodes, ccw, g), n=5, warmup=1)
+    # per kernel and launch (profiler), cuBLAS's time for the same products
+    t["split"] = wide_split.measure(ws, bs, x, h, nodes, ccw, g)
+    for kind in ("fwd", "bwd"):
+        part = t["split"][kind]
+        t[f"{kind}_device_ms"] = part["device_ms"]
+        t[f"{kind}_kernels_per_call"] = part["kernels_per_call"]
+        t[f"{kind}_cublas_ms"] = t["split"][f"{kind}_cublas_ms"]
+        t[f"{kind}_product_tflops"] = part["product_gflop"] / part["by_kind"]["gemm"]
     t["fwd_bound"] = bound(kernel_flops(WIDE_WIDTHS, R, K), kernel_bytes(WIDE_WIDTHS, R, K), name)
     t["bwd_bound"] = bound(bwd_kernel_flops(WIDE_WIDTHS, R, K), bwd_kernel_bytes(WIDE_WIDTHS, R, K),
                            name)
@@ -1646,9 +1690,9 @@ def phase_wide(gen, dev, calib, name):
     report("wide", tol=KERNEL_TOL, cases=errs, cases_backward=bwd_errs,
            cases_via_autograd=auto_errs, kinks=kinks,
            reference="plain version in float64 on the kernel's sides of each LeakyReLU",
-           flow=flows, timing=t, phase_seconds=time.perf_counter() - t0)
+           flow=flows, train_flow=train, timing=t, phase_seconds=time.perf_counter() - t0)
     return (errs, {**bwd_errs, **{f"{k}_autograd": v for k, v in auto_errs.items()}},
-            flows["auto"]["launches"], t)
+            launches, t)
 
 
 

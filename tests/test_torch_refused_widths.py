@@ -175,6 +175,29 @@ def test_the_backward_entry_point_takes_the_streamed_pair_too(fake_card):
     assert dh.shape == h.shape and S.shape == x.shape
 
 
+def test_the_streamed_backward_reads_each_w_in_place(fake_card, monkeypatch):
+    """Its dz and dh products read each layer's W at the layer's own address
+    (nn.Linear's [dout, din] layout, nothing copied), beside the packed W^T
+    and b of the forward: what the launcher is handed, read during the call."""
+    lib = fake_card()
+    seen = []
+
+    def launch(x, h, params, weights, *args):
+        floats = lambda ptr, n: torch.tensor(list((ctypes.c_float * n).from_address(ptr)))
+        seen.append((floats(params, n_params), list(weights)))
+        return 0
+
+    monkeypatch.setattr(lib, "umnn_integrand_bwd_wide", launch)
+    ws, bs, x, h, nodes, ccw = _inputs([7, 129, 5, 1])
+    n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    ik.fused_cc_integral_bwd(ws, bs, x, h, nodes, ccw, torch.ones(3))
+    assert len(seen) == 1
+    params, weights = seen[0]
+    assert weights == [w.data_ptr() for w in ws]
+    assert torch.equal(params, torch.cat([t.reshape(-1) for w, b in zip(ws, bs)
+                                          for t in (w.T.contiguous(), b)]))
+
+
 def test_auto_on_the_cpu_computes_a_wide_integrand_without_asking(fake_card):
     lib = fake_card()
     block = UMNNMAF(4, torch.Generator().manual_seed(0), embedding_s=6,

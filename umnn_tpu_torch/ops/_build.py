@@ -57,7 +57,7 @@ SIGNATURES = {
     "umnn_integrand_bwd_p4_slots": ([_I, _P, _I], _I),
     "umnn_integrand_bwd_p4_occupancy": ([_I, _I, _P, _I, _P], _I),
     "umnn_integrand_fwd_wide": ([_P] * 6 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
-    "umnn_integrand_bwd_wide": ([_P] * 10 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
+    "umnn_integrand_bwd_wide": ([_P] * 11 + [_I, _I, _P, _I, ctypes.c_float, _P, _P], _I),
     "umnn_integrand_wide_scratch_floats": ([_I, _I, _P, _I], ctypes.c_longlong),
     "umnn_cuda_error_string": ([_I], ctypes.c_char_p),
 }
@@ -135,18 +135,24 @@ def build() -> Path:
 
 def ptxas_report() -> dict:
     """Per kernel of the built library: ``{"registers", "stack_bytes",
-    "spill_stores_bytes", "spill_loads_bytes"}``, from ptxas's output."""
+    "spill_stores_bytes", "spill_loads_bytes", "smem_bytes"}``, from ptxas's
+    output."""
     return parse_ptxas(library_path().with_suffix(".ptxas.txt").read_text())
 
 
 def parse_ptxas(text: str) -> dict:
-    """:func:`ptxas_report`'s dictionary from the text ptxas printed."""
+    """:func:`ptxas_report`'s dictionary from the text ptxas printed; a
+    template's instances as ``name<arg,...>``."""
     out, name = {}, None
     for line in text.splitlines():
-        # the mangled name ends in <length><name>E<parameters>
-        m = re.search(r"Compiling entry function '.*\d(integrand_[a-z0-9_]+?_(?:kernel|reduce))E", line)
+        # the mangled name ends in <length><name>E<parameters>, a template
+        # instance's in <length><name>I<arguments>E...
+        m = re.search(r"Compiling entry function '.*\d(integrand_[a-z0-9_]+?_(?:kernel|reduce))"
+                      r"(?:E|I((?:L[a-z]+-?\d+E)+)E)", line)
         if m:
             name = m.group(1)
+            if m.group(2):
+                name += f"<{','.join(re.findall(r'L[a-z]+(-?\d+)E', m.group(2)))}>"
             out[name] = {}
         elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                                       r"(\d+) bytes spill loads", line)):
@@ -154,6 +160,8 @@ def parse_ptxas(text: str) -> dict:
                              spill_loads_bytes=int(m[3]))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name]["registers"] = int(m[1])
+            if m := re.search(r"(\d+) bytes smem", line):
+                out[name]["smem_bytes"] = int(m[1])
     return out
 
 

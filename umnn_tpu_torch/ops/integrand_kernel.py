@@ -30,7 +30,8 @@ pairs:
   MAX_LAYERS layers, a set past the card's shared memory per block): the
   port of `_fwd_kernel` and `_bwd_kernel` at those widths, which JAX pads
   to 128-lane multiples (`:59-70`). It keeps the weights in device memory
-  and computes the rows in chunks (:func:`_wide_chunks`).
+  and computes the rows in chunks (:func:`_wide_chunks`); its backward also
+  reads each layer's W in place, in ``nn.Linear``'s layout.
 
 ``pack4=None`` and ``pack2=None`` pick the pair as JAX's auto does
 (`:1334-1343`): pack-4 where :func:`_pack4_applicable` holds, else pack-2
@@ -474,14 +475,16 @@ def _launch_bwd(ws, bs, x, h, nodes, ccw, g, neg_slope, widths, route):
         fn = getattr(lib, f"umnn_integrand_{kernel}")
         with _on(dev) as stream:
             if route == "_wide":
-                # each chunk adds its dW/db to dparams, in chunk order
+                # each chunk adds its dW/db to dparams, in chunk order; the
+                # dz and dh products read each layer's W in place
                 chunks = _wide_chunks(R, K, widths)
                 scratch = _wide_scratch(lib, chunks, K, ptr, n, dev)
+                weights = (ctypes.c_void_p * len(ws))(*(w.data_ptr() for w in ws))
                 for a, b in chunks:
-                    rc = fn(_at(x, a), _at(h, a * e), params.data_ptr(), nodes.data_ptr(),
-                            ccw.data_ptr(), _at(g, a), _at(dx, a), _at(dh, a * e), _at(S, a),
-                            dparams.data_ptr(), b - a, K, ptr, n, float(neg_slope),
-                            scratch.data_ptr(), stream)
+                    rc = fn(_at(x, a), _at(h, a * e), params.data_ptr(), weights,
+                            nodes.data_ptr(), ccw.data_ptr(), _at(g, a), _at(dx, a),
+                            _at(dh, a * e), _at(S, a), dparams.data_ptr(), b - a, K, ptr, n,
+                            float(neg_slope), scratch.data_ptr(), stream)
                     _raise_on(rc, lib, f"integrand_{kernel}")
             else:
                 # the unpacked grid: one block per SM; the pack-2 grid: as
