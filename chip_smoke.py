@@ -53,7 +53,26 @@ scipy. Phases, each printing one flushed JSON line:
            Leibniz route, 5 + 5 pack-2 launches per training step and none
            of the unpacked pair, then the port's calibration driver for 5
            epochs on full data, which must pass its 0.05-nat gate;
-10. kernel_p4  the pack-4 forward kernel against its plain version at the
+10. uci    the UCI driver's flow on BSDS300 at full width (D = 63, 5 blocks,
+           MADE [512, 512], integrand 31-50-50-50-50-1, batch 500: 31,500
+           rows; random weights from a seed; the synthetic stand-in at the
+           real dataset's 1,234,568 rows): gradients of the two routes at
+           K = 51 and at a randomized step's 101 padded nodes; 5 + 5 pack-2
+           launches a step at both, 5 forward launches an evaluation, 15 in
+           the validity report; examples/train_uci.py for 3 epochs of 40
+           randomized steps (epoch NLLs finite, valid NLL falling, no
+           non-finite row, launches as counted, test NLL beside the
+           synthetic floor), a -load to epoch 4 (resumed at epoch 3 with the
+           saved parameters and rate), -test (every best tag) and a
+           -Lipshitz 1.5 run (every integrand layer's exact norm within
+           LIP_TOL of the bound), and the projection of a full-width flow on
+           the card; then the pack-2 pair at the driver's blocks against its
+           plain versions (forward and backward at R = 31,500, K = 51 and
+           101; forward at the validity report's 126,000 rows and 401
+           nodes), with device times beside their bounds, and
+           uci_train_step_ms at both node counts with the device's idle
+           share;
+11. kernel_p4  the pack-4 forward kernel against its plain version at the
            toy flow's block (512 rows, 17 nodes, widths 11-32-32-1), a
            4,096-row block and the flagship's block (192 rows, 21 nodes,
            widths 9-32-32-1), and edge cases (K = 16, 18, 19, 101 padded
@@ -64,18 +83,18 @@ scipy. Phases, each printing one flushed JSON line:
            one row, a grid of one block); pack4=True on a 33-wide layer
            raises; auto takes the pack-4, pack-2 and unpacked pairs where
            JAX's auto does; bit-identical reruns; its launch shape;
-11. bwd_p4 the pack-4 backward kernel, through the autograd Function and
+12. bwd_p4 the pack-4 backward kernel, through the autograd Function and
            through its wrapper, against the float64 plain version at the
            same cases, by bwd_p2's rule; bit-identical reruns; its launch
            shape (with the partial-sum slices);
-12. toy    the flagship flow (2 blocks, D = 6) and the toy flow at the
+13. toy    the flagship flow (2 blocks, D = 6) and the toy flow at the
            verify widths: gradients on the kernel route against the
            Leibniz route, 2 + 2 and 1 + 1 pack-4 launches per training
            step and no other integrand kernel (and the flagship step's
            device launches of all kernels); then the port's toy driver
            for 6 epochs on 8gaussians and on conditionnal8gaussians, whose
            test NLL must fall;
-13. wide   the streamed pair (integrand_wide.cu), which takes what the
+14. wide   the streamed pair (integrand_wide.cu), which takes what the
            staged pairs refuse: values and gradients (by bwd_p2's rule,
            through the wrapper and the autograd Function) at a 129-wide
            integrand, the timing block (3,000 rows, 51 nodes, widths
@@ -94,7 +113,7 @@ scipy. Phases, each printing one flushed JSON line:
            both routes); at the timing block its device time per kernel and
            launch (ops/wide_split.py), CUDA kernels per call, the bound and
            cuBLAS's time for the same products;
-14. timing CUDA-event medians of whole calls and profiler device times of
+15. timing CUDA-event medians of whole calls and profiler device times of
            every kernel, their plain versions, compute_bpp and a training
            step of each flow, beside the kernels' bounds; the unpacked pair
            also at the calibration block, and the pack-2 and unpacked pairs
@@ -114,6 +133,7 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -129,7 +149,8 @@ import torch
 from umnn_tpu_torch import UMNNMAFFlow
 from umnn_tpu_torch.data.images import synthetic_mnist_ar1
 from umnn_tpu_torch.data.toy import inf_train_gen
-from umnn_tpu_torch.examples import train_calibration, train_toy
+from umnn_tpu_torch.data import uci
+from umnn_tpu_torch.examples import train_calibration, train_toy, train_uci
 from umnn_tpu_torch.nn.core import torch_linear_init
 from umnn_tpu_torch.ops import _build, wide_split
 from umnn_tpu_torch.ops import integrand_kernel as ik
@@ -157,6 +178,25 @@ CALIB = dict(
 CALIB_BATCH = 500
 CALIB_WIDTHS = [1 + CALIB["embedding_s"], *CALIB["hidden_derivative"], 1]
 CALIB_EPOCHS = 5  # the short gate at full width on full data
+# The UCI driver's flow on BSDS300 (examples/train_uci.py's defaults, D = 63),
+# batch 500: 31,500 folded rows through the calibration widths, so the pack-2
+# pair. Rows: the synthetic stand-in at the real dataset's size
+# (-synthetic_rows -1). Randomized steps pad to 101 nodes; the validity
+# report takes 2,000 valid rows (126,000 folded) on nodes padded to 401.
+UCI = dict(CALIB, nb_in=uci.UCI_DIMS["bsds300"])
+UCI_BATCH = 500
+UCI_WIDTHS = CALIB_WIDTHS
+UCI_ARGV = "-data bsds300 -synthetic -synthetic_rows -1 -nb_steps 0".split()
+UCI_EPOCHS, UCI_STEPS = 3, 40  # the driver's short run (-steps_per_epoch)
+UCI_VALID_ROWS = 2000  # the validity report's slice (examples/train_uci.py:332)
+# The Lipschitz run's bound, and the tolerance on each projected layer's
+# exact spectral norm. Power iteration (10 steps from a random start, the
+# reference's rule) approaches sigma from below, so a layer divided by
+# sigma_est / L ends at L * sigma / sigma_est: on 2,000 random matrices of
+# the integrand's shapes (CPU) sigma / sigma_est reached 1.18, and 1.11
+# after 200 steps of perturbation and projection.
+LIP_L = 1.5
+LIP_TOL = 0.25
 # The toy flow at the verify widths of examples/train_toy.py (the repo's
 # verify command without its -sample). Its integrand is at most 32 wide, so
 # it runs on the pack-4 kernel pair.
@@ -329,22 +369,32 @@ def device_ms(fn, kernel: str, n: int = 20) -> float:
     a backward, its reduction), from a torch.profiler trace of ``n`` calls
     after 3 warm-ups: the kernel alone, without the wrapper's host work.
     Every launch must be in the trace, n of the sweep (and n of the
-    reduction): a trace that lost one (seen once on the card, for one of
-    five MNIST backward sweeps) is taken again, at most three times."""
+    reduction): a trace that lost one is taken again, at most three times.
+    Traces have lost one launch of a window (once among five MNIST backward
+    sweeps before; the pack-2 forward at the calibration block in three
+    traces in a row after phase uci's traces), so a fill kernel of another
+    name opens and closes each window; its count is in the failure's
+    message."""
     pattern = re.compile(rf"(?<![A-Za-z_]){kernel}_(kernel|reduce)(?![a-z0-9_])")
     for _ in range(3):
         fn()
+    fill = torch.zeros(1, device=torch.cuda.current_device())
     torch.cuda.synchronize()
+    seen = []
     for _ in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fill.fill_(1.0)
             for _ in range(n):
                 fn()
+            fill.fill_(2.0)
             torch.cuda.synchronize()
-        hits = [e for e in _device_events(prof) if pattern.search(e.key)]
+        events = _device_events(prof)
+        hits = [e for e in events if pattern.search(e.key)]
         counts = {e.key: e.count for e in hits}
         if any("_kernel" in k for k in counts) and all(c == n for c in counts.values()):
             return sum(e.device_time_total for e in hits) / n / 1e3
-    raise AssertionError(f"profiler: launches of {kernel} seen in {n} calls: {counts}")
+        seen.append({"kernel": counts, "fill": sum(e.count for e in events if "fill" in e.key)})
+    raise AssertionError(f"profiler: launches of {kernel} seen in {n} calls: {seen}")
 
 
 # The launch floor's kernels: they do nothing, and are launched at another
@@ -526,16 +576,16 @@ def host_breakdown(call, kernel: str, n: int = 200) -> dict:
             "other_us": whole - sum(steps.values()), "event_pair_us": events}
 
 
-def step_profile(step, x, n: int = 5) -> dict:
-    """Device time per training step, over ``n`` steps after 2 warm-ups:
-    all kernels together, the integrand kernels by name, and the number of
-    kernel launches."""
+def step_profile(step, *batch, n: int = 5) -> dict:
+    """Device time per training step ``step(*batch)``, over ``n`` steps
+    after 2 warm-ups: all kernels together, the integrand kernels by name,
+    and the number of kernel launches."""
     for _ in range(2):
-        step(x)
+        step(*batch)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            step(x)
+            step(*batch)
         torch.cuda.synchronize()
     events = _device_events(prof)
     out = {"device_busy_ms": sum(e.device_time_total for e in events) / n / 1e3,
@@ -956,14 +1006,17 @@ def trainer(flow, weight_decay=1e-2):
     return make_train_step(lambda *batch: -flow.compute_ll(*batch)[0].mean(), optimizer)
 
 
-def route_gaps(flow, plain, what: str, *batch) -> tuple:
+def route_gaps(flow, plain, what: str, *batch, **quad) -> tuple:
     """``-mean(compute_ll)`` and its gradients on the kernel route (``flow``)
     against the Leibniz route (``plain``, the same seeded weights): the loss
     within SLICE_TOL, every parameter gradient within TRAIN_GRAD_GAP of its
-    tensor's largest entry. Returns the loss's errors and the largest gap."""
-    loss_k = -flow.compute_ll(*batch)[0].mean()
+    tensor's largest entry. Returns the loss's errors and the largest gap.
+    ``quad``: ``nodes=`` and ``weights=`` for compute_ll."""
+    flow.zero_grad(set_to_none=True)
+    plain.zero_grad(set_to_none=True)
+    loss_k = -flow.compute_ll(*batch, **quad)[0].mean()
     loss_k.backward()
-    loss_p = -plain.compute_ll(*batch)[0].mean()
+    loss_p = -plain.compute_ll(*batch, **quad)[0].mean()
     loss_p.backward()
     torch.cuda.synchronize()
     loss_err = compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, f"{what} loss")
@@ -1245,6 +1298,298 @@ def phase_calibration(dev):
            epoch_lines=[l for l in lines if l.startswith("epoch")],
            gate_seconds=gate_s, phase_seconds=time.perf_counter() - t0)
     return step_k, step_p, x0, launches
+
+
+def uci_trainer(flow):
+    """examples/train_uci.py's training step: the loss on the step's nodes."""
+    optimizer = make_optimizer(flow.parameters(), "adam", lr=1e-3, weight_decay=1e-2,
+                               grad_clip=1.0)
+    return make_train_step(
+        lambda x, nodes, weights: -flow.compute_ll(x, nodes=nodes, weights=weights)[0].mean(),
+        optimizer)
+
+
+def run_uci(argv: list, folder) -> tuple:
+    """examples/train_uci.py's main on ``argv``: its return code, printed
+    lines and seconds."""
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_uci.main(UCI_ARGV + argv + ["-folder", str(folder)])
+    return rc, out.getvalue().splitlines(), time.perf_counter() - t
+
+
+def uci_blocks(flow, gen, dev, x0, x_valid, name) -> tuple:
+    """The pack-2 pair at the blocks the UCI driver gives it, on the first
+    block's own inputs (the flow's integrand weights, its embedding of a
+    batch): R = 31,500 at K = 51 and at the padded K = 101 of a randomized
+    step, forward and backward against their plain versions (the backward
+    by phase bwd_p2's rule), and the forward at the validity report's
+    126,000 rows and 401 padded nodes; each one launch of its kernel, with
+    its device time beside its bound."""
+    block = flow.blocks[0]
+    ws = [l.weight.detach() for l in block.net.integrand.layers]
+    bs = [l.bias.detach() for l in block.net.integrand.layers]
+    e = UCI["embedding_s"]
+
+    def inputs(x):
+        with torch.no_grad():
+            h = block.net.integrand.fold_embedding(block.embed(x))
+        return x.reshape(-1).contiguous(), h.reshape(-1, e).contiguous()
+
+    xb, hb = inputs(x0)
+    g = torch.randn(xb.numel(), generator=gen).to(dev)
+    R = xb.numel()
+    errs, bwd_errs, out = {}, {}, {}
+    for label, (nodes, ccw) in (("K51", cc_tensors(UCI["nb_steps"], dev)),
+                                ("K101", padded_cc_quadrature(UCI["nb_steps"], 100, dev))):
+        K = nodes.numel()
+        with torch.inference_mode():
+            call = lambda: ik.fused_cc_integral(ws, bs, xb, hb, nodes, ccw)  # noqa: E731
+            before = dict(ik.LAUNCHES)
+            got = call()
+            torch.cuda.synchronize()
+            check(launched_since(before) == {"integrand_fwd_p2": 1},
+                  f"uci fwd {label}: launched {launched_since(before)}")
+            errs[f"uci_{label}"] = compare(
+                got, ik.fused_cc_integral_plain(ws, bs, xb, hb, nodes, ccw), KERNEL_TOL,
+                f"uci fwd {label}")
+            fwd = {"ms": median_ms(call), "device_ms": device_ms(call, "integrand_fwd_p2"),
+                   "plain_ms": median_ms(
+                       lambda: ik.fused_cc_integral_plain(ws, bs, xb, hb, nodes, ccw), n=5),
+                   **bound(kernel_flops(UCI_WIDTHS, R, K), kernel_bytes(UCI_WIDTHS, R, K), name),
+                   "launch_shape": launch_shape("fwd_p2", UCI_WIDTHS, K, R)}
+        args = (ws, bs, xb, hb, nodes, ccw, g, 0.01)
+        pos, items, rows = kernel_branches(ws, bs, xb, hb, nodes, 0.01)
+        want = bwd_plain64(*args, pos=pos)
+        want64 = bwd_plain64(*args)
+        plain = ik.fused_cc_integral_bwd_plain(*args)
+        before = dict(ik.LAUNCHES)
+        got = ik.fused_cc_integral_bwd(*args)
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_bwd_p2": 1},
+              f"uci bwd {label}: launched {launched_since(before)}")
+        bwd_errs[f"uci_{label}"] = worst(compare_bwd(got, plain, want, f"uci bwd {label}", want64))
+        del want, want64, plain, got, pos
+        call = lambda: ik.fused_cc_integral_bwd(*args)  # noqa: E731
+        bwd = {"ms": median_ms(call, n=10), "device_ms": device_ms(call, "integrand_bwd_p2", n=10),
+               "plain_ms": median_ms(lambda: ik.fused_cc_integral_bwd_plain(*args), n=5,
+                                     warmup=1),
+               **bound(bwd_kernel_flops(UCI_WIDTHS, R, K), bwd_kernel_bytes(UCI_WIDTHS, R, K),
+                       name),
+               "launch_shape": launch_shape("bwd_p2", UCI_WIDTHS, K),
+               "kinks": {"items_on_other_side": items, "rows_holding_one": rows}}
+        for part in (fwd, bwd):
+            part["device_bound_share"] = part["bound_ms"] / part["device_ms"]
+        out[label] = {"rows": R, "nodes": K, "fwd": fwd, "bwd": bwd}
+        torch.cuda.empty_cache()
+
+    # the validity report's forward: 2,000 valid rows on 401 padded nodes
+    xv, hv = inputs(x_valid)
+    nodes, ccw = padded_cc_quadrature(100, 400, dev)
+    Rv, Kv = xv.numel(), nodes.numel()
+    with torch.inference_mode():
+        call = lambda: ik.fused_cc_integral(ws, bs, xv, hv, nodes, ccw)  # noqa: E731
+        before = dict(ik.LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        check(launched_since(before) == {"integrand_fwd_p2": 1},
+              f"uci validity fwd: launched {launched_since(before)}")
+        step = 21_000  # the plain version's activations, 1.7 GB a layer
+        want = torch.cat([ik.fused_cc_integral_plain(ws, bs, xv[a:a + step], hv[a:a + step],
+                                                     nodes, ccw) for a in range(0, Rv, step)])
+        errs["uci_validity_K401"] = compare(got, want, KERNEL_TOL, "uci validity fwd")
+        del got, want
+        fwd = {"ms": median_ms(call, n=5), "device_ms": device_ms(call, "integrand_fwd_p2", n=5),
+               **bound(kernel_flops(UCI_WIDTHS, Rv, Kv), kernel_bytes(UCI_WIDTHS, Rv, Kv), name),
+               "launch_shape": launch_shape("fwd_p2", UCI_WIDTHS, Kv, Rv)}
+        fwd["device_bound_share"] = fwd["bound_ms"] / fwd["device_ms"]
+    out["validity_K401"] = {"rows": Rv, "nodes": Kv, "fwd": fwd}
+    torch.cuda.empty_cache()
+    return errs, bwd_errs, out
+
+
+def uci_driver(data, floor: float, dev) -> tuple:
+    """examples/train_uci.py as a user runs it on the phase's data: three
+    short epochs, a resume, evaluation only and a Lipschitz run, each held
+    to its gates. Returns the report's parts and the first run's launches."""
+    n = UCI["nb_flow"]
+    # (e) the driver: three short epochs at full data, randomized steps
+    folder = _build.BUILD_DIR.parent / "chip_smoke_uci"
+    shutil.rmtree(folder, ignore_errors=True)
+    short = ["-nb_epoch", str(UCI_EPOCHS), "-steps_per_epoch", str(UCI_STEPS)]
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    rc, lines, train_s = run_uci(short, folder)
+    driver_launches = dict(ik.LAUNCHES)
+    check(rc == 0, f"uci: train_uci exited {rc}: {lines[-5:]}")
+    result = json.loads(lines[-1])
+    run = folder / "bsds300"
+    records = [json.loads(l) for l in (run / "metrics.jsonl").read_text().splitlines()]
+    curve = {tag: [r["value"] for r in records if r["tag"] == tag]
+             for tag in ("train_nll", "valid_nll")}
+    check(all(len(v) == UCI_EPOCHS and all(np.isfinite(v)) for v in curve.values()),
+          f"uci: epoch NLLs {curve}")
+    check(curve["valid_nll"][-1] < curve["valid_nll"][0], f"uci: valid NLL did not fall {curve}")
+    check(result["validity"]["n_nonfinite"] == 0, f"uci: final line {result}")
+    # every batch of 500 a step or an evaluation: 5 forward sweeps each, 5
+    # backward sweeps a step; 3 forward calls in the validity report
+    evals = UCI_EPOCHS * -(-len(data.val) // UCI_BATCH) + -(-len(data.tst) // UCI_BATCH) + 3
+    want = {**NONE_LAUNCHED, "integrand_fwd_p2": n * (UCI_EPOCHS * UCI_STEPS + evals),
+            "integrand_bwd_p2": n * UCI_EPOCHS * UCI_STEPS}
+    check(driver_launches == want, f"uci: train_uci launched {driver_launches}, want {want}")
+
+    # (f) -load resumes at epoch 3 with the saved parameters and rate
+    saved = torch.load(run / "ckpt" / "steps" / str(UCI_EPOCHS) / "state.pt", map_location=dev)
+    seen = {}
+    real = train_uci.resume_training_state
+
+    def recording(ckpt, model, optimizer, **kw):
+        out = real(ckpt, model, optimizer, **kw)
+        seen["equal"] = all(torch.equal(model.state_dict()[k], v)
+                            for k, v in saved["model"].items())
+        seen["lr"], seen["start"] = optimizer.lr, out[1]
+        return out
+
+    train_uci.resume_training_state = recording
+    try:
+        rc, resume_lines, resume_s = run_uci(["-nb_epoch", str(UCI_EPOCHS + 1), "-load",
+                                              "-steps_per_epoch", str(UCI_STEPS)], folder)
+    finally:
+        train_uci.resume_training_state = real
+    saved_lr = saved["optimizer"]["param_groups"][0]["lr"]
+    check(rc == 0 and seen.get("start") == UCI_EPOCHS and seen["equal"]
+          and seen["lr"] == saved_lr, f"uci: resume {seen}, saved lr {saved_lr}")
+    check(any(f"resumed at epoch {UCI_EPOCHS}" in l for l in resume_lines),
+          "uci: no resume line")
+    resumed = json.loads(resume_lines[-1])
+
+    # (g) evaluation only: every best tag
+    rc, test_lines, test_s = run_uci(["-test"], folder)
+    test_only = json.loads(test_lines[-1])
+    check(rc == 0 and set(test_only["test_nll_by_ckpt"]) == {"train", "valid", "train_valid"},
+          f"uci: -test gave {test_only}")
+
+    # (h) a Lipschitz run
+    lip_folder = _build.BUILD_DIR.parent / "chip_smoke_uci_lipschitz"
+    shutil.rmtree(lip_folder, ignore_errors=True)
+    rc, lip_lines, lip_s = run_uci(["-nb_epoch", "1", "-steps_per_epoch", "10",
+                                    "-Lipshitz", str(LIP_L)], lip_folder)
+    check(rc == 0, f"uci: Lipschitz run exited {rc}")
+    state = torch.load(lip_folder / "bsds300" / "ckpt" / "steps" / "1" / "state.pt",
+                       map_location=dev)["model"]
+    norms = {k: float(torch.linalg.matrix_norm(v, 2)) for k, v in state.items()
+             if ".integrand." in k and k.endswith("weight")}
+    check(len(norms) == n * (len(UCI["hidden_derivative"]) + 1)
+          and max(norms.values()) <= LIP_L * (1 + LIP_TOL),
+          f"uci: integrand norms after the Lipschitz run {norms}")
+    parts = {
+        "driver": {"argv": UCI_ARGV + short, "seconds": train_s, "curve": curve,
+                   "final": result, "synthetic_floor": floor,
+                   "test_nll_minus_floor": result["test_nll"] - floor,
+                   "launches": driver_launches,
+                   "epoch_lines": [l for l in lines if l.startswith("epoch")]},
+        "resume": {"start_epoch": seen["start"], "lr": seen["lr"], "params_equal": seen["equal"],
+                   "seconds": resume_s, "final": resumed,
+                   "epoch_lines": [l for l in resume_lines if l.startswith("epoch")]},
+        "test_only": {"seconds": test_s, "result": test_only},
+        "lipschitz": {"L": LIP_L, "tol": LIP_TOL, "seconds": lip_s,
+                      "max_norm": max(norms.values()), "final": json.loads(lip_lines[-1])},
+    }
+    return parts, driver_launches
+
+
+def phase_uci(gen, dev, name):
+    """The UCI driver's main path on BSDS300 at full width: the gradients of
+    the two routes at K = 51 and 101, the launches of a training step, of
+    an evaluation and of the validity report, the pack-2 pair at the
+    driver's blocks, the step's time, then examples/train_uci.py itself:
+    three short epochs, a resume, evaluation only, and a Lipschitz run."""
+    t0 = time.perf_counter()
+    n_rows = uci.SYNTH_REAL_ROWS["bsds300"]
+    t = time.perf_counter()
+    data = uci.load_uci("bsds300", synthetic=True, synthetic_rows=n_rows)
+    data_s = time.perf_counter() - t
+    floor = uci.synthetic_floor("bsds300", n_rows=n_rows)
+    x0 = torch.as_tensor(data.trn[:UCI_BATCH], device=dev)
+    x_valid = torch.as_tensor(data.val[:UCI_VALID_ROWS], device=dev)
+    n51 = cc_tensors(UCI["nb_steps"], dev)
+    n101 = padded_cc_quadrature(UCI["nb_steps"], train_uci.MAX_STEPS, dev)
+    flow = UMNNMAFFlow(**UCI, backend="auto", seed=0)
+    plain = UMNNMAFFlow(**UCI, backend="torch", seed=0)
+
+    # (a) the routes' gradients at K = 51 and at a randomized step's 101
+    loss51, gap51 = route_gaps(flow, plain, "uci K=51", x0)
+    loss101, gap101 = route_gaps(flow, plain, "uci K=101", x0, nodes=n101[0], weights=n101[1])
+    del plain
+    torch.cuda.empty_cache()
+
+    # (b) the pair each call takes, and its launches
+    step = uci_trainer(flow)
+    n = UCI["nb_flow"]
+    pack2 = {**NONE_LAUNCHED, "integrand_fwd_p2": n, "integrand_bwd_p2": n}
+    launches = {"step_K51": step_launches(step, x0, *n51),
+                "step_K101": step_launches(step, x0, *n101)}
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    with torch.no_grad():
+        flow.compute_ll(x0, nodes=n101[0], weights=n101[1])
+    torch.cuda.synchronize()
+    launches["eval_K101"] = dict(ik.LAUNCHES)
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    validity = train_uci.density_validity_report(flow, x_valid, steps=100, check_steps=400)
+    torch.cuda.synchronize()
+    launches["validity_report_K401"] = dict(ik.LAUNCHES)
+    for key in ("step_K51", "step_K101"):
+        check(launches[key] == pack2, f"uci: {key} launched {launches[key]}, want {pack2}")
+    for key, calls in (("eval_K101", 1), ("validity_report_K401", 3)):
+        want = {**NONE_LAUNCHED, "integrand_fwd_p2": calls * n}
+        check(launches[key] == want, f"uci: {key} launched {launches[key]}, want {want}")
+    check(validity.n_nonfinite == 0, f"uci: validity report {validity}")
+
+    # (e)-(h) the driver, before (c) and (d): after this phase's profiler
+    # traces, the driver's many launches made later traces lose launches
+    # (two calls, one launch of a window each time)
+    parts, driver_launches = uci_driver(data, floor, dev)
+
+    # and the projection at full width on the card
+    scaled = UMNNMAFFlow(**UCI, seed=1)
+    with torch.no_grad():
+        for b in scaled.blocks:
+            for layer in b.net.integrand.layers:
+                layer.weight.mul_(3.0)
+    scaled.force_lipschitz(LIP_L, torch.Generator(device=dev).manual_seed(97))
+    projected = [float(torch.linalg.matrix_norm(l.weight.detach(), 2))
+                 for b in scaled.blocks for l in b.net.integrand.layers]
+    check(all(LIP_L * (1 - 1e-5) <= v <= LIP_L * (1 + LIP_TOL) for i, v in enumerate(projected)
+              if i % 5 != 4), f"uci: projected norms {projected}")
+    check(all(v <= LIP_L * (1 + 1e-5) for v in projected[4::5]), f"uci: output rows {projected}")
+    del scaled
+
+    # (c) the pack-2 pair at the driver's blocks
+    fwd_errs, bwd_errs, blocks = uci_blocks(flow, gen, dev, x0, x_valid, name)
+
+    # (d) the step's time, at 50 steps and at a randomized step's 101 nodes
+    timing = {}
+    for label, quad in (("K51", n51), ("K101", n101)):
+        ms = median_ms(lambda: step(x0, *quad), n=10, warmup=2)
+        profile = step_profile(step, x0, *quad)
+        profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / ms
+        timing[label] = {"uci_train_step_ms": ms, **profile}
+    del flow, step
+    torch.cuda.empty_cache()
+
+    parts["lipschitz"]["scaled_flow_norms"] = {"min": min(projected), "max": max(projected)}
+    report("uci", batch=UCI_BATCH, widths=UCI_WIDTHS, nb_in=UCI["nb_in"], rows=n_rows,
+           splits=[len(data.trn), len(data.val), len(data.tst)], data_seconds=data_s,
+           loss_K51=loss51, **{f"{k}_K51": v for k, v in gap51.items()},
+           loss_K101=loss101, **{f"{k}_K101": v for k, v in gap101.items()},
+           grad_gap_tol=TRAIN_GRAD_GAP, launches=launches,
+           validity_K401=dataclasses.asdict(validity), blocks=blocks, fwd_p2_errs=fwd_errs,
+           bwd_p2_errs=bwd_errs, timing=timing, **parts,
+           phase_seconds=time.perf_counter() - t0)
+    return fwd_errs, bwd_errs, blocks, launches, driver_launches, timing
 
 
 def toy_rows(n: int, seed: int, dev) -> torch.Tensor:
@@ -1806,6 +2151,8 @@ def main() -> None:
     fwd_p2_errs, fwd_p2_shape = phase_kernel_p2(gen, dev, calib)
     g_calib, bwd_p2_errs, bwd_p2_shape = phase_bwd_p2(gen, dev, calib)
     calib_k, calib_p, calib_x, calib_launches = phase_calibration(dev)
+    uci_fwd_errs, uci_bwd_errs, uci_blocks_t, uci_launches, uci_driver_launches, uci_t = \
+        phase_uci(gen, dev, name)
     p4c, fwd_p4_errs, fwd_p4_shape = phase_kernel_p4(gen, dev)
     g_p4, bwd_p4_errs, bwd_p4_shape = phase_bwd_p4(gen, dev, p4c)
     toy_flow, toy_k, toy_p, toy_x, toy_launches = phase_toy(dev)
@@ -1889,13 +2236,14 @@ def main() -> None:
            fwd_p2_launch_shape=fwd_p2_shape["calibration_block"],
            bwd_p2_device_bound_share=bwd_p2_bound["bound_ms"] / calib_t["bwd_p2_device_ms"],
            bwd_p2_launch_shape=bwd_p2_shape["calibration_block"],
-           calib_train_step_profile=calib_profile, pack4_ab=p4_t, toy=toy_t,
+           calib_train_step_profile=calib_profile, uci_train_step=uci_t, pack4_ab=p4_t,
+           toy=toy_t,
            toy_train_step_profile=toy_profile)
 
     # ``ms`` (and its alias ``kernel_ms``) is a CUDA-event median of whole
     # wrapper calls, as in every earlier run; ``device_ms`` the kernel alone.
     def entry(kernel, tpu_kernel, line, errs, ms, dev_ms, plain_ms, b, n_launched,
-              source=None):
+              source=None, **more):
         # the streamed pair's entries name its file and every kernel of it
         source = source or f"{kernel}.cu"
         kernels = ([k for k in ptxas if k.startswith("integrand_wide_")]
@@ -1909,7 +2257,14 @@ def main() -> None:
             "ms": ms, "kernel_ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
             "ptxas": ptxas[kernels[0]] if len(kernels) == 1 else {k: ptxas[k] for k in kernels},
+            **more,
         }
+
+    def p2_launches(kernel):
+        return {"calibration_step": calib_launches[kernel],
+                "uci_step_K51": uci_launches["step_K51"][kernel],
+                "uci_step_K101": uci_launches["step_K101"][kernel],
+                "uci_driver_run": uci_driver_launches[kernel]}
 
     toy_block = p4_t["toy_block"]
     kernels = [
@@ -1917,12 +2272,17 @@ def main() -> None:
               fwd_plain_ms, fwd_bound, launches["integrand_fwd"]),
         entry("integrand_bwd", "_bwd_kernel", 156, bwd_errs, bwd_ms, bwd_device_ms,
               bwd_plain_ms, bwd_bound, launches["integrand_bwd"]),
-        entry("integrand_fwd_p2", "_fwd_kernel_p2", 333, fwd_p2_errs,
+        # the calibration block's figures; the UCI driver's blocks in "uci"
+        entry("integrand_fwd_p2", "_fwd_kernel_p2", 333, {**fwd_p2_errs, **uci_fwd_errs},
               calib_t["fwd_p2_ms"], calib_t["fwd_p2_device_ms"], calib_t["fwd_plain_ms"],
-              fwd_p2_bound, calib_launches["integrand_fwd_p2"]),
-        entry("integrand_bwd_p2", "_bwd_kernel_p2", 384, bwd_p2_errs,
+              fwd_p2_bound, calib_launches["integrand_fwd_p2"],
+              launches_by_phase=p2_launches("integrand_fwd_p2"),
+              uci={k: v["fwd"] for k, v in uci_blocks_t.items()}),
+        entry("integrand_bwd_p2", "_bwd_kernel_p2", 384, {**bwd_p2_errs, **uci_bwd_errs},
               calib_t["bwd_p2_ms"], calib_t["bwd_p2_device_ms"], calib_t["bwd_plain_ms"],
-              bwd_p2_bound, calib_launches["integrand_bwd_p2"]),
+              bwd_p2_bound, calib_launches["integrand_bwd_p2"],
+              launches_by_phase=p2_launches("integrand_bwd_p2"),
+              uci={k: v["bwd"] for k, v in uci_blocks_t.items() if "bwd" in v}),
         entry("integrand_fwd_p4", "_fwd_kernel_pn", 522, fwd_p4_errs,
               toy_block["fwd_p4_ms"], toy_block["fwd_p4_device_ms"], toy_block["fwd_plain_ms"],
               toy_block["fwd_bound"], toy_launches["integrand_fwd_p4"]),

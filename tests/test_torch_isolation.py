@@ -5,6 +5,7 @@ Each check runs in a fresh interpreter in which ``jax``, ``jaxlib`` and
 """
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -139,6 +140,50 @@ runpy.run_module("umnn_tpu_torch.examples.train_toy", run_name="__main__")
 """)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+
+
+def test_uci_driver_runs_without_jax_and_refuses_a_missing_card(tmp_path):
+    proc = _run(f"""
+import runpy
+sys.argv = ["train_uci", "-data", "bsds300", "-nb_epoch", "1", "-folder", {str(tmp_path)!r}]
+runpy.run_module("umnn_tpu_torch.examples.train_uci", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+    assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+def test_uci_slice_trains_on_the_cpu_without_jax(tmp_path):
+    """The new modules import, and the UCI driver trains, resumes and
+    writes a snapshot, all with jax and umnn_tpu blocked."""
+    out = _ok(_run(f"""
+import json
+from umnn_tpu_torch.data import uci
+from umnn_tpu_torch.examples import train_uci
+from umnn_tpu_torch.training import checkpoint, resume
+from umnn_tpu_torch.utils import validity
+argv = ("-device cpu -data miniboone -synthetic -synthetic_rows 600 -nb_flow 1 "
+        "-hidden_embedding 8 -hidden_derivative 4 4 -embedding_s 2 -nb_steps 0 -b_size 50 "
+        "-steps_per_epoch 2 -Lipshitz 1.5 -folder {tmp_path}").split()
+assert train_uci.main(argv + ["-nb_epoch", "1"]) == 0
+assert train_uci.main(argv + ["-nb_epoch", "2", "-load"]) == 0
+flow = train_uci.UMNNMAFFlow(nb_flow=1, nb_in=43, hidden_derivative=(4, 4),
+                             hidden_embedding=(8,), embedding_s=2, device="cpu")
+checkpoint.save_params_npz({str(tmp_path / "s.npz")!r}, flow)
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "umnn_tpu")]
+print(json.dumps(sorted(p.name for p in (train_uci.Path({str(tmp_path)!r}) / "miniboone").iterdir())))
+"""))
+    assert json.loads(out.strip().splitlines()[-1]) == ["args.json", "ckpt", "metrics.jsonl", "train.log"]
+
+
+def test_source_scan_covers_the_uci_slice():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert {
+        "umnn_tpu_torch/data/uci.py", "umnn_tpu_torch/training/checkpoint.py",
+        "umnn_tpu_torch/training/resume.py", "umnn_tpu_torch/utils/validity.py",
+        "umnn_tpu_torch/examples/train_uci.py", "umnn_tpu_torch/models/umnn_maf.py",
+        "umnn_tpu_torch/training/loops.py",
+    } <= scanned
 
 
 def test_source_scan_covers_the_toy_slice():

@@ -120,7 +120,7 @@ def _launches(lib, widths, grad, **route):
     ([31, 128, 128, 1], ("fwd",), False, ["fwd"]),
     ([31, 128, 128, 1], ("bwd",), False, ["fwd", "bwd"]),
 ], ids=["w129", "w100_129_grad", "fwd_past_the_card", "bwd_past_the_card"])
-def test_a_refused_integrand_raises_before_any_launch_and_names_the_torch_backend(
+def test_a_refused_integrand_takes_the_streamed_pair_and_does_not_raise(
         fake_card, widths, too_big, grad, asked):
     """A set a staged helper refuses no longer raises: the call goes to the
     streamed pair, forward and backward alike (also a forward alone whose

@@ -1,12 +1,13 @@
 """UMNNMAFFlow: a stack of UMNN-MAF blocks with a feature reversal between
 blocks.
 
-PyTorch counterpart of `umnn_tpu/models/flow.py:26-125`. The forward
+PyTorch counterpart of `umnn_tpu/models/flow.py:26-125,148-158`. The forward
 composes ``rev . net_k . rev . ... . rev . net_0`` and a trailing reversal
 restores the original order; the reversal alternates the autoregressive
 direction between blocks. With ``cond_in > 0`` every block is conditioned on
 a context (ConditionalMADE embeddings), which each method takes as
-``context=`` and hands unchanged to every block.
+``context=`` and hands unchanged to every block. The Lipschitz controls
+(`:148-158`) go block by block.
 """
 
 from __future__ import annotations
@@ -101,3 +102,16 @@ class UMNNMAFFlow(nn.Module):
         """Bits per pixel for logit-dequantized images: ``(bpp, ll, z)``."""
         ll, z = self.compute_ll(x, context)
         return bits_per_pixel(ll, x, alpha), ll, z
+
+    def compute_lipschitz(self, generator=None, inits=None, nb_iter: int = 10) -> torch.Tensor:
+        """Product of the blocks' integrand estimates; ``inits[i][j]``: the
+        start vector of block i's layer j, else drawn from ``generator``."""
+        L = torch.ones((), device=self.blocks[0].scaling.device)
+        for i, block in enumerate(self.blocks):
+            L = L * block.compute_lipschitz(generator, inits[i] if inits else None, nb_iter)
+        return L
+
+    def force_lipschitz(self, L: float = 1.5, generator=None, inits=None) -> None:
+        """Project every block's integrand layers in place."""
+        for i, block in enumerate(self.blocks):
+            block.force_lipschitz(L, generator, inits[i] if inits else None)

@@ -1,7 +1,7 @@
 """UMNN-MAF: one autoregressive monotone flow block and its networks.
 
-PyTorch counterpart of `umnn_tpu/models/umnn_maf.py` (`:64-111,133-185,
-188-391`). One block computes
+PyTorch counterpart of `umnn_tpu/models/umnn_maf.py` (`:50-60,64-130,
+133-185,188-409`). One block computes
 
     z_d = exp(s_d) * ( ∫_0^{x_d} f_d(t, h_d(x_{<d})) dt + z0_d )
 
@@ -24,6 +24,11 @@ On the kernel route, under ``"auto"`` on the card too, an integrand whose
 widths a kernel pair refuses goes to the streamed pair; one no kernel
 computes (an output other than ELU+1, no hidden layer) raises before any
 launch, and only ``"torch"`` runs it on the card.
+
+Lipschitz control (`UMNNMAF.py:26-34,289-301`): ``compute_lipschitz``
+multiplies power-iteration estimates of the integrand layers' spectral
+norms, and ``force_lipschitz`` divides each layer's weight by
+``max(sigma / L, 1)`` in place, biases kept.
 """
 
 from __future__ import annotations
@@ -39,9 +44,34 @@ from umnn_tpu_torch.nn.made import MADE, ConditionalMADE
 from umnn_tpu_torch.ops.integrand_kernel import fused_cc_integral
 from umnn_tpu_torch.ops.quadrature import cc_tensors, neural_integral
 
-__all__ = ["IntegrandNetwork", "EmbeddingNetwork", "UMNNMAF", "BACKENDS"]
+__all__ = [
+    "BACKENDS", "EmbeddingNetwork", "IntegrandNetwork", "UMNNMAF", "power_iteration_sigma",
+]
 
 BACKENDS = ("auto", "kernel", "torch")
+
+
+def power_iteration_sigma(
+    w: torch.Tensor,
+    init: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    nb_iter: int = 10,
+) -> torch.Tensor:
+    """Estimate of the spectral norm of ``w`` ``[dout, din]`` by power
+    iteration on ``w^T w`` (`umnn_tpu/models/umnn_maf.py:50-60`).
+
+    ``init``: the start vector, ``din`` values; else one drawn standard
+    normal from ``generator`` (on the generator's device). The estimate
+    never exceeds the norm: it approaches it from below.
+    """
+    if init is None:
+        gen_device = generator.device if generator is not None else w.device
+        init = torch.randn(w.shape[1], 1, generator=generator, device=gen_device)
+    x = init.reshape(-1, 1).to(device=w.device, dtype=w.dtype)
+    for _ in range(nb_iter):
+        x = w.T @ (w @ x)
+        x = x / torch.linalg.norm(x)
+    return torch.sqrt(torch.linalg.norm(w.T @ (w @ x)) / torch.linalg.norm(x))
 
 
 class IntegrandNetwork(nn.Module):
@@ -83,6 +113,33 @@ class IntegrandNetwork(nn.Module):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return self.mlp(self.fold_features(x, h))[..., 0]
+
+    # JAX iterates on its ``w.T``, ``[dout, din]``: nn.Linear's weight is
+    # that matrix, so sigma here is the norm of the same matrix, from the
+    # same start vector the same estimate.
+
+    @torch.no_grad()
+    def compute_lipschitz(
+        self, generator: torch.Generator | None = None, inits=None, nb_iter: int = 10
+    ) -> torch.Tensor:
+        """Product of the layers' estimated spectral norms; ``inits[i]``:
+        layer i's start vector, else drawn from ``generator``."""
+        L = torch.ones((), device=self.layers[0].weight.device)
+        for i, layer in enumerate(self.layers):
+            init = inits[i] if inits is not None else None
+            L = L * power_iteration_sigma(layer.weight, init, generator, nb_iter)
+        return L
+
+    @torch.no_grad()
+    def force_lipschitz(
+        self, L: float = 1.5, generator: torch.Generator | None = None, inits=None
+    ) -> None:
+        """Divide each layer's weight by ``max(sigma / L, 1)``, in place;
+        biases kept (`umnn_tpu/models/umnn_maf.py:123-130`)."""
+        for i, layer in enumerate(self.layers):
+            init = inits[i] if inits is not None else None
+            sigma = power_iteration_sigma(layer.weight, init, generator, 10)
+            layer.weight.div_(torch.clamp(sigma / L, min=1.0))
 
 
 class EmbeddingNetwork(nn.Module):
@@ -230,6 +287,15 @@ class UMNNMAF(nn.Module):
         """Bits per pixel for logit-dequantized images."""
         ll, z = self.compute_ll(x, context)
         return bits_per_pixel(ll, x, alpha), ll, z
+
+    def compute_lipschitz(self, generator=None, inits=None, nb_iter: int = 10) -> torch.Tensor:
+        """The integrand's Lipschitz estimate (`:395-398`)."""
+        return self.net.integrand.compute_lipschitz(generator, inits, nb_iter)
+
+    def force_lipschitz(self, L: float = 1.5, generator=None, inits=None) -> None:
+        """Project the integrand's layers (`:400-409`); MADE and the
+        scaling are untouched."""
+        self.net.integrand.force_lipschitz(L, generator, inits)
 
 
 def bits_per_pixel(ll: torch.Tensor, x: torch.Tensor, alpha: float) -> torch.Tensor:

@@ -3,9 +3,11 @@
 PyTorch counterpart of `umnn_tpu/training/loops.py`: ``make_optimizer``
 (`:83-108`), the train step with its non-finite guard (`:111-191`),
 ``finite_mean`` (`:194-207`), ``ReduceLROnPlateau`` (`:270-307`) and
-``batch_iter`` (`:310-332`). Not ported yet: the gradient-accumulation
-step, the retry of transient compile failures (a TPU workaround), the mesh
-shardings and ``post_update`` (the Lipschitz projection).
+``batch_iter`` (`:310-332`); the step's ``post_update`` (`:128`,
+`:174-175`) carries the Lipschitz projection. Not ported yet: the
+gradient-accumulation step and ``make_eval_step``; not ported, by
+decision: the retry of transient compile failures (a TPU workaround) and
+the mesh shardings (one card).
 """
 
 from __future__ import annotations
@@ -64,6 +66,20 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.inner.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """The inner optimizer's state: Adam's moments and step counts, and
+        the learning rate (JAX keeps it in the injected hyperparameters)."""
+        return self.inner.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state)
+
+    def reset(self, lr: float) -> None:
+        """Fresh moments and step counts at learning rate ``lr``: JAX's
+        ``optimizer.init`` followed by ``set_learning_rate``."""
+        self.inner.state.clear()
+        self.lr = lr
+
     def step(self) -> None:
         """Clip the gradients in place and update the parameters."""
         if self.grad_clip is not None:
@@ -90,22 +106,32 @@ def _grads_finite(loss: torch.Tensor, params: Iterable[torch.Tensor]) -> torch.T
 
 
 def make_train_step(
-    loss_fn: Callable[..., torch.Tensor], optimizer: Optimizer
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer: Optimizer,
+    post_update: Optional[Callable[..., None]] = None,
 ) -> Callable[..., torch.Tensor]:
-    """``step(*batch) -> loss``: loss, backward, clip, update.
+    """``step(batch, *extras) -> loss``: ``loss_fn(batch, *extras)``,
+    backward, clip, update.
 
     Non-finite guard: when the loss or any gradient is not finite, the
     update is skipped and the parameters, Adam's moments and its step count
     stay as they were (JAX selects the old state with ``jnp.where``). The
     check costs one read of a boolean by the host per step.
+
+    ``post_update(*extras)`` runs after the guarded update on every step, a
+    skipped one too, as JAX's runs inside its compiled step: e.g. the
+    Lipschitz projection the reference applies after every ``opt.step()``
+    (`UCIExperiments.py:145-147`). It changes the parameters in place.
     """
 
-    def step(*batch) -> torch.Tensor:
+    def step(batch, *extras) -> torch.Tensor:
         optimizer.zero_grad()
-        loss = loss_fn(*batch)
+        loss = loss_fn(batch, *extras)
         loss.backward()
         if bool(_grads_finite(loss, optimizer.params)):
             optimizer.step()
+        if post_update is not None:
+            post_update(*extras)
         return loss.detach()
 
     return step
