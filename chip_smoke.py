@@ -122,7 +122,28 @@ scipy. Phases, each printing one flushed JSON line:
            the launch floor at its launch shapes (launch_floor_ms) and the
            host breakdown of its calls (host_breakdown); the unpacked pair's
            shares of their bounds and launch shapes, and the forward's
-           device time beside its acceptance limit (not enforced).
+           device time beside its acceptance limit (not enforced);
+16. sample inversion and sampling: at the UCI parity configuration (the
+           calibration flow, batch 500, D = 6, 5 blocks; the pack-2 forward)
+           the reference's bisection (10 rounds of 10 candidates) and
+           Jacobi-Newton (30 iterations), at the MNIST configuration at full
+           width (batch 100, D = 784; the unpacked forward) Newton on 5
+           blocks and bisection on 1 (the cut; once on 5, the kernel route,
+           39,200 launches and its round trip), each from z = forward(x) on
+           the kernel route and the plain route (backend="torch"), three
+           calls each (CUDA events, samples/s): launches exactly blocks x D x
+           iters (bisection) or blocks x iters (Newton) of the forward and
+           nothing else, none on the plain route; the x- and z-space round
+           trips within 3e-3 (bisection) and 2e-4 (Newton), the routes within
+           the same of each other; a profiler trace of one call (device busy
+           time, idle share, the forward's device time a launch beside its
+           bound); a Newton inversion keeps no graph and no gradient; then
+           the toy driver with -sample 128 on 8gaussians and
+           conditionnal8gaussians (the pack-4 forward): its launches, finite
+           samples written under -folder, their round trip under the saved
+           parameters, their z against the driver's draws, samples/s of both
+           routes. It runs last: its long traces and many unprofiled
+           launches once made a later exact-count trace lose a launch.
 
 Then a ``kernels`` line, the nvidia-smi name and power limit, and a last
 line ``{"ok": true, "device": {...}}``. Any failed check raises, and the
@@ -155,6 +176,7 @@ from umnn_tpu_torch.nn.core import torch_linear_init
 from umnn_tpu_torch.ops import _build, wide_split
 from umnn_tpu_torch.ops import integrand_kernel as ik
 from umnn_tpu_torch.ops.quadrature import cc_tensors, padded_cc_quadrature
+from umnn_tpu_torch.training.checkpoint import CheckpointManager
 from umnn_tpu_torch.training.loops import make_optimizer, make_train_step
 
 T0 = time.perf_counter()
@@ -208,6 +230,26 @@ TOY_ARGV = "-nb_epoch 6 -nb_steps 16 -b_size 256 -hidden_embedding 64 64 -hidden
 # Test NLL at epochs 0 and 5 of the JAX package's driver (examples/train_toy.py)
 # at TOY_ARGV, run on a CPU on the XLA route: a quality yardstick, not the port's.
 JAX_CPU_TOY_NLL = {"8gaussians": (5.3267, 4.3366), "conditionnal8gaussians": (5.2626, 4.0331)}
+# Inversion (phase sample): the reference's bisection, 10 rounds of 10
+# candidates, and Jacobi-Newton at 30 iterations, with the round-trip floors
+# PARITY_RUNS.md §6 measured on the JAX package at the UCI configuration
+# (VERDICT.md:243-247): max|invert(forward(x)) - x| at most 3e-3 and 2e-4 on
+# x = 1.5 N(0, 1) clipped to +-6. The same limits hold z-space round trips
+# (that section's z-space errors: 7.2e-4 and 5.5e-4 bisection, 2.5e-5 and
+# 8.7e-5 Newton, UCI and MNIST) and the kernel route against the plain one:
+# each lies within its limit of the true x, and the final bracket, 2 x 50 /
+# 9^10 = 2.9e-8, adds nothing, so a larger gap means a route left its floor.
+SAMPLE_ITERS = {"bisection": 10, "newton": 30}
+NB_CANDIDATES = 10
+ROUND_TRIP = {"bisection": 3e-3, "newton": 2e-4}
+# MNIST bisection is 784 x 10 launches a block, 6 to 8 s a call on either
+# route: the phase runs it once at full depth on the kernel route, and its
+# three calls on each route on one block of the five (the cut; PERF.md §4)
+MNIST_BISECT_BLOCKS = 1
+TOY_SAMPLES = 128  # the verify command's -sample 128
+# What may stay allocated after an inversion beyond its result: the MNIST
+# flow's gradients would be 540 MB
+MEM_SLACK = 1 << 20
 # The __graft_entry__.py flagship (:20-31): D = 6, 2 blocks, batch 32 (192 rows).
 FLAGSHIP = dict(nb_flow=2, nb_in=6, hidden_derivative=(32, 32), hidden_embedding=(64, 64),
                 embedding_s=8, nb_steps=20)
@@ -1857,6 +1899,258 @@ def phase_toy(dev):
     return flow, step_k, step_p, x_toy, launches
 
 
+def sample_rows(B: int, D: int, seed: int, dev) -> torch.Tensor:
+    """``x`` as PARITY_RUNS.md §6's accuracy sweep draws it: 1.5 N(0, 1),
+    clipped to +-6."""
+    rs = np.random.RandomState(seed)
+    return torch.as_tensor(np.clip(1.5 * rs.randn(B, D), -6, 6).astype(np.float32), device=dev)
+
+
+def inversion_launches(method: str, blocks: int, D: int, kernel: str) -> dict:
+    """One inversion's integrand launches: bisection one forward a round,
+    blocks x D x iters; Newton one an iteration, blocks x iters; no backward."""
+    per_block = D * SAMPLE_ITERS[method] if method == "bisection" else SAMPLE_ITERS[method]
+    return {**NONE_LAUNCHED, kernel: blocks * per_block}
+
+
+def inversion_profile(fn, wall_ms: float) -> dict:
+    """Device busy time of one call of ``fn`` from a torch.profiler trace,
+    the integrand kernels' share by name, and the idle share against the
+    call's unprofiled time ``wall_ms``."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    busy = sum(e.device_time_total for e in events) / 1e3
+    out = {"device_busy_ms": busy, "device_launches": sum(e.count for e in events),
+           "device_idle_share": 1.0 - busy / wall_ms}
+    for kernel in ik.LAUNCHES:
+        pattern = re.compile(rf"(?<![A-Za-z_]){kernel}_(kernel|reduce)(?![a-z0-9_])")
+        hits = [e for e in events if pattern.search(e.key)]
+        if hits:
+            out[f"{kernel}_ms"] = sum(e.device_time_total for e in hits) / 1e3
+            out[f"{kernel}_launches"] = sum(e.count for e in hits)
+            out[f"{kernel}_ms_per_launch"] = out[f"{kernel}_ms"] / out[f"{kernel}_launches"]
+    return out
+
+
+def inversion(kernel_flow, plain_flow, x, method: str, kernel: str, name: str, what: str,
+              profile: bool = True) -> dict:
+    """``invert(forward(x))`` on the kernel route and the plain route
+    (``backend="torch"``, the same weights), three times each (CUDA events,
+    median; the counts set to 0 before each call and read after): the
+    kernel route launches ``kernel`` as inversion_launches says and nothing
+    else, the plain route nothing; each route's x-space and z-space round
+    trips within ROUND_TRIP, the routes within ROUND_TRIP of each other;
+    samples/s; a profiler trace of one kernel-route call; the forward
+    kernel's device time per launch at this inversion's shape, beside its
+    bound."""
+    B, D = x.shape
+    iters = SAMPLE_ITERS[method]
+    with torch.no_grad():
+        z = kernel_flow(x)
+    want = inversion_launches(method, len(kernel_flow.blocks), D, kernel)
+    out, xs = {"batch": B, "dims": D, "blocks": len(kernel_flow.blocks), "iters": iters}, {}
+    kw = {"nb_candidates": NB_CANDIDATES} if method == "bisection" else {}
+    for route, flow in (("kernel", kernel_flow), ("plain", plain_flow)):
+        times = []
+        for _ in range(3):
+            for k in ik.LAUNCHES:
+                ik.LAUNCHES[k] = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            x_inv = flow.invert(z, iters, method=method, **kw)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            launched = dict(ik.LAUNCHES)
+            check(launched == (want if route == "kernel" else NONE_LAUNCHED),
+                  f"sample {what} {method} {route}: launched {launched}")
+        check(bool(torch.isfinite(x_inv).all()), f"sample {what} {method} {route}: non-finite x")
+        with torch.no_grad():
+            z_back = flow(x_inv)
+        x_rt, z_rt = float((x_inv - x).abs().max()), float((z_back - z).abs().max())
+        rows_over = int(((x_inv - x).abs().amax(1) > ROUND_TRIP[method]).sum())
+        check(x_rt <= ROUND_TRIP[method] and z_rt <= ROUND_TRIP[method],
+              f"sample {what} {method} {route}: round trips x {x_rt}, z {z_rt} past "
+              f"{ROUND_TRIP[method]} ({rows_over} rows of {B} past it in x)")
+        ms = float(np.median(times))
+        out[route] = {"ms": ms, "times_ms": times, "samples_per_s": B / ms * 1e3,
+                      "x_round_trip": x_rt, "z_round_trip": z_rt, "launches": launched}
+        xs[route] = x_inv
+    gap = float((xs["kernel"] - xs["plain"]).abs().max())
+    check(gap <= ROUND_TRIP[method], f"sample {what} {method}: the routes differ by {gap}")
+    out["route_gap"] = gap
+    out["round_trip_limit"] = ROUND_TRIP[method]
+    if profile:
+        out["profile"] = inversion_profile(lambda: kernel_flow.invert(z, iters, method=method, **kw),
+                                           out["kernel"]["ms"])
+    # the forward kernel's rows a launch: bisection's candidates, Newton's x
+    rows = B * (NB_CANDIDATES if method == "bisection" else D)
+    block = kernel_flow.blocks[0]
+    layers = block.net.integrand.layers
+    widths = [layers[0].in_features, *(l.out_features for l in layers)]
+    out["kernel_rows"] = rows
+    out["kernel_bound"] = bound(kernel_flops(widths, rows, block.nb_steps + 1),
+                                kernel_bytes(widths, rows, block.nb_steps + 1), name)
+    return out
+
+
+def toy_sampling(dev, name) -> dict:
+    """The toy driver with -sample 128 on 8gaussians and
+    conditionnal8gaussians: launches of the run (training as in phase toy,
+    then one pack-4 forward a bisection round), finite samples written
+    under -folder, their bisection round trip under the last checkpoint's
+    parameters, their z against the driver's draws, and samples/s of both
+    routes."""
+    runs = {}
+    for data in JAX_CPU_TOY_NLL:
+        folder = _build.BUILD_DIR.parent / "chip_smoke_sample_toy"
+        shutil.rmtree(folder, ignore_errors=True)
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            history = train_toy.main(
+                f"-data {data} {TOY_ARGV} -sample {TOY_SAMPLES} -folder {folder}".split())
+        seconds = time.perf_counter() - t
+        launched = dict(ik.LAUNCHES)
+        sample_launches = inversion_launches("bisection", TOY["nb_flow"], TOY["nb_in"],
+                                             "integrand_fwd_p4")["integrand_fwd_p4"]
+        # phase toy's 66 + 60 for 6 epochs, then the samples' rounds
+        want = {**NONE_LAUNCHED, "integrand_fwd_p4": 66 + sample_launches, "integrand_bwd_p4": 60}
+        check(launched == want, f"sample toy {data}: launched {launched}, want {want}")
+        samples = history["samples"]
+        check(samples.shape == (TOY_SAMPLES, 2) and bool(np.isfinite(samples).all()),
+              f"sample toy {data}: samples {samples.shape}")
+        check(np.array_equal(np.load(folder / f"samples_{data}.npy"), samples),
+              f"sample toy {data}: the saved samples differ")
+        cond = train_toy.COND_IN if data == "conditionnal8gaussians" else 0
+        flows = {}
+        _, state, _ = CheckpointManager(folder / data / "ckpt").restore(map_location=dev)
+        for route, backend in (("kernel", "auto"), ("plain", "torch")):
+            flows[route] = UMNNMAFFlow(**TOY, backend=backend, seed=0, cond_in=cond)
+            flows[route].load_state_dict(state)
+        ctx = torch.eye(cond, device=dev)[torch.arange(TOY_SAMPLES, device=dev) % cond] if cond else None
+        xs = torch.as_tensor(samples, device=dev)
+        z_drawn = torch.randn(TOY_SAMPLES, 2, generator=torch.Generator(device=dev).manual_seed(1),
+                              device=dev)
+        with torch.no_grad():
+            z = flows["kernel"](xs, ctx)
+        z_gap = float((z - z_drawn).abs().max())
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        x_rt = float((flows["kernel"].invert(z, SAMPLE_ITERS["bisection"], ctx) - xs).abs().max())
+        torch.cuda.synchronize()
+        round_trip_launches = dict(ik.LAUNCHES)
+        check(round_trip_launches == {**NONE_LAUNCHED, "integrand_fwd_p4": sample_launches},
+              f"sample toy {data}: the round trip launched {round_trip_launches}")
+        check(x_rt <= ROUND_TRIP["bisection"] and z_gap <= ROUND_TRIP["bisection"],
+              f"sample toy {data}: round trip {x_rt}, z against the draws {z_gap}")
+        rates = {}
+        for route, flow in flows.items():
+            draw = lambda f=flow: f.sample(  # noqa: E731
+                TOY_SAMPLES, torch.Generator(device=dev).manual_seed(1), context=ctx)
+            ms = median_ms(draw, n=3, warmup=1)
+            rates[route] = {"ms": ms, "samples_per_s": TOY_SAMPLES / ms * 1e3}
+            if route == "kernel":
+                rates[route]["profile"] = inversion_profile(draw, ms)
+        rows = TOY_SAMPLES * NB_CANDIDATES
+        rates["kernel"]["kernel_rows"] = rows
+        rates["kernel"]["kernel_bound"] = bound(kernel_flops(TOY_WIDTHS, rows, TOY["nb_steps"] + 1),
+                                                kernel_bytes(TOY_WIDTHS, rows, TOY["nb_steps"] + 1),
+                                                name)
+        runs[data] = {
+            "seconds": seconds, "launches": launched, "round_trip_launches": round_trip_launches,
+            "sample_line": out.getvalue().splitlines()[-1],
+            "mean": samples.mean(0).tolist(), "std": samples.std(0).tolist(),
+            "verify_expectation_8gaussians": {"mean": 0.0, "std": 2.0},
+            "x_round_trip": x_rt, "z_against_draws": z_gap, "routes": rates,
+            "test_nll": history["test_nll"],
+        }
+    return runs
+
+
+def phase_sample(dev, name):
+    """Inversion and sampling on the card: the UCI parity configuration
+    (bisection and Newton, the pack-2 forward), the MNIST configuration at
+    full width (Newton at 5 blocks; bisection on MNIST_BISECT_BLOCKS blocks,
+    the cut), and the toy driver's -sample 128 (the pack-4 forward); each
+    inversion against the plain route, with its launches counted, its
+    round trips gated, its samples/s and a profiler trace. Forward-only
+    calls under inference mode keep no graph: the result has no grad_fn,
+    no parameter gets a gradient, and only the result stays allocated."""
+    t0 = time.perf_counter()
+    res = {}
+    uci_k = UMNNMAFFlow(**CALIB, backend="auto", seed=0)
+    uci_p = UMNNMAFFlow(**CALIB, backend="torch", seed=0)
+    x_uci = sample_rows(CALIB_BATCH, CALIB["nb_in"], 7, dev)
+    for method in ("bisection", "newton"):
+        res[f"uci_{method}"] = inversion(uci_k, uci_p, x_uci, method, "integrand_fwd_p2", name,
+                                         "uci")
+    del uci_k, uci_p
+
+    mnist_k = UMNNMAFFlow(**MNIST, backend="auto", seed=0)
+    mnist_p = UMNNMAFFlow(**MNIST, backend="torch", seed=0)
+    x_mnist = sample_rows(BATCH, MNIST["nb_in"], 8, dev)
+    res["mnist_newton"] = inversion(mnist_k, mnist_p, x_mnist, "newton", "integrand_fwd", name,
+                                    "mnist")
+    # inference mode: nothing kept for a backward, no gradient buffer
+    with torch.no_grad():
+        z = mnist_k(x_mnist)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    x_inv = mnist_k.invert(z, SAMPLE_ITERS["newton"], method="newton")
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    check(x_inv.grad_fn is None and not x_inv.requires_grad, "sample: the inverse has a graph")
+    check(all(p.grad is None for p in mnist_k.parameters()), "sample: a parameter got a gradient")
+    check(kept <= x_inv.numel() * 4 + MEM_SLACK,
+          f"sample: {kept} bytes stayed allocated after a Newton inversion")
+    res["mnist_newton"]["memory"] = {"kept_bytes": kept, "result_bytes": x_inv.numel() * 4,
+                                     "peak_over_before_bytes":
+                                         torch.cuda.max_memory_allocated() - before}
+
+    # bisection at full depth: one kernel-route call, launches and round trip
+    # gated; the routes' three calls each then run on the cut
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    t = time.perf_counter()
+    x_inv = mnist_k.invert(z, SAMPLE_ITERS["bisection"], nb_candidates=NB_CANDIDATES)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    want = inversion_launches("bisection", MNIST["nb_flow"], MNIST["nb_in"], "integrand_fwd")
+    check(dict(ik.LAUNCHES) == want, f"sample mnist bisection at full depth: {ik.LAUNCHES}")
+    x_rt = float((x_inv - x_mnist).abs().max())
+    check(x_rt <= ROUND_TRIP["bisection"], f"sample mnist bisection at full depth: {x_rt}")
+    full = {"seconds": seconds, "samples_per_s": BATCH / seconds, "x_round_trip": x_rt,
+            "launches": dict(ik.LAUNCHES)}
+    del mnist_k, mnist_p, x_inv, z
+
+    cut = dict(MNIST, nb_flow=MNIST_BISECT_BLOCKS)
+    res["mnist_bisection"] = inversion(
+        UMNNMAFFlow(**cut, backend="auto", seed=0), UMNNMAFFlow(**cut, backend="torch", seed=0),
+        x_mnist, "bisection", "integrand_fwd", name, "mnist")
+    res["mnist_bisection"]["cut"] = f"{MNIST_BISECT_BLOCKS} of {MNIST['nb_flow']} blocks"
+    res["mnist_bisection"]["full_depth_kernel_route_once"] = full
+    res["toy"] = toy_sampling(dev, name)
+    # counted: one kernel-route call of each inversion, and each toy round trip
+    launches = {k: 0 for k in ik.LAUNCHES}
+    counted = [r["kernel"]["launches"] for k, r in res.items() if k != "toy"]
+    counted += [run["round_trip_launches"] for run in res["toy"].values()]
+    for c in counted:
+        for kname, n in c.items():
+            launches[kname] += n
+    report("sample", device=name, nvidia_smi=nvidia_smi(), nb_candidates=NB_CANDIDATES,
+           iters=SAMPLE_ITERS, round_trip_limit=ROUND_TRIP, **res,
+           launches_one_call_each=launches, phase_seconds=time.perf_counter() - t0)
+    return res, launches
+
+
 def phase_wide(gen, dev, calib, name):
     """The streamed pair, integrand_fwd_wide and integrand_bwd_wide, on what
     the staged pairs refuse, under backend "auto" (and "kernel" for the
@@ -2239,6 +2533,9 @@ def main() -> None:
            calib_train_step_profile=calib_profile, uci_train_step=uci_t, pack4_ab=p4_t,
            toy=toy_t,
            toy_train_step_profile=toy_profile)
+    # last: its ~50,000 unprofiled launches and long traces came before
+    # phase wide's exact-count traces once, and one of those lost launches
+    sample_res, sample_launches = phase_sample(dev, name)
 
     # ``ms`` (and its alias ``kernel_ms``) is a CUDA-event median of whole
     # wrapper calls, as in every earlier run; ``device_ms`` the kernel alone.
@@ -2264,12 +2561,26 @@ def main() -> None:
         return {"calibration_step": calib_launches[kernel],
                 "uci_step_K51": uci_launches["step_K51"][kernel],
                 "uci_step_K101": uci_launches["step_K101"][kernel],
-                "uci_driver_run": uci_driver_launches[kernel]}
+                "uci_driver_run": uci_driver_launches[kernel],
+                "sample": sample_launches[kernel]}
+
+    def sample_times(kernel):
+        """The forward kernel at the sample phase's shapes: device ms a
+        launch (profiler), beside its bound, per inversion."""
+        runs = {k: r for k, r in sample_res.items() if k != "toy"}
+        runs.update({f"toy_{d}": r["routes"]["kernel"] for d, r in sample_res["toy"].items()})
+        return {k: {"rows": r["kernel_rows"], "bound_ms": r["kernel_bound"]["bound_ms"],
+                    "device_ms_per_launch": r["profile"][f"{kernel}_ms_per_launch"],
+                    "launches_in_trace": r["profile"][f"{kernel}_launches"]}
+                for k, r in runs.items() if f"{kernel}_ms_per_launch" in r["profile"]}
 
     toy_block = p4_t["toy_block"]
     kernels = [
         entry("integrand_fwd", "_fwd_kernel", 106, fwd_errs, fwd_ms, fwd_device_ms,
-              fwd_plain_ms, fwd_bound, launches["integrand_fwd"]),
+              fwd_plain_ms, fwd_bound, launches["integrand_fwd"],
+              launches_by_phase={"train_step": launches["integrand_fwd"],
+                                 "sample": sample_launches["integrand_fwd"]},
+              sample=sample_times("integrand_fwd")),
         entry("integrand_bwd", "_bwd_kernel", 156, bwd_errs, bwd_ms, bwd_device_ms,
               bwd_plain_ms, bwd_bound, launches["integrand_bwd"]),
         # the calibration block's figures; the UCI driver's blocks in "uci"
@@ -2277,7 +2588,8 @@ def main() -> None:
               calib_t["fwd_p2_ms"], calib_t["fwd_p2_device_ms"], calib_t["fwd_plain_ms"],
               fwd_p2_bound, calib_launches["integrand_fwd_p2"],
               launches_by_phase=p2_launches("integrand_fwd_p2"),
-              uci={k: v["fwd"] for k, v in uci_blocks_t.items()}),
+              uci={k: v["fwd"] for k, v in uci_blocks_t.items()},
+              sample=sample_times("integrand_fwd_p2")),
         entry("integrand_bwd_p2", "_bwd_kernel_p2", 384, {**bwd_p2_errs, **uci_bwd_errs},
               calib_t["bwd_p2_ms"], calib_t["bwd_p2_device_ms"], calib_t["bwd_plain_ms"],
               bwd_p2_bound, calib_launches["integrand_bwd_p2"],
@@ -2285,7 +2597,10 @@ def main() -> None:
               uci={k: v["bwd"] for k, v in uci_blocks_t.items() if "bwd" in v}),
         entry("integrand_fwd_p4", "_fwd_kernel_pn", 522, fwd_p4_errs,
               toy_block["fwd_p4_ms"], toy_block["fwd_p4_device_ms"], toy_block["fwd_plain_ms"],
-              toy_block["fwd_bound"], toy_launches["integrand_fwd_p4"]),
+              toy_block["fwd_bound"], toy_launches["integrand_fwd_p4"],
+              launches_by_phase={"toy_step": toy_launches["integrand_fwd_p4"],
+                                 "sample": sample_launches["integrand_fwd_p4"]},
+              sample=sample_times("integrand_fwd_p4")),
         entry("integrand_bwd_p4", "_bwd_kernel_pn", 573, bwd_p4_errs,
               toy_block["bwd_p4_ms"], toy_block["bwd_p4_device_ms"], toy_block["bwd_plain_ms"],
               toy_block["bwd_bound"], toy_launches["integrand_bwd_p4"]),

@@ -169,13 +169,13 @@ TINY = (
 )
 
 
-def test_driver_trains_at_a_tiny_size(capsys):
+def test_driver_trains_at_a_tiny_size(capsys, tmp_path):
     from umnn_tpu_torch.examples import train_mnist
 
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        result = train_mnist.main(TINY.split())
+        result = train_mnist.main(TINY.split() + ["-folder", str(tmp_path)])
     finally:
         torch.set_num_threads(threads)
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
@@ -195,14 +195,15 @@ def test_driver_without_device_raises_when_cuda_is_absent(monkeypatch):
         train_mnist.main(argv)
 
 
-def test_driver_scores_test_bpp_every_epoch_and_finally_on_the_best_valid_epoch(capsys):
+def test_driver_scores_test_bpp_every_epoch_and_finally_on_the_best_valid_epoch(capsys, tmp_path):
     from umnn_tpu_torch.examples import train_mnist
 
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
         # lr 0.02: the valid bpp rises in the last epoch, so the best epoch is not the last
-        result = train_mnist.main(TINY.replace("-nb_epoch 2", "-nb_epoch 4").split() + ["-lr", "0.02"])
+        result = train_mnist.main(TINY.replace("-nb_epoch 2", "-nb_epoch 4").split()
+                                  + ["-lr", "0.02", "-folder", str(tmp_path)])
     finally:
         torch.set_num_threads(threads)
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]

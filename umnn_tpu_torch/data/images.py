@@ -1,8 +1,10 @@
-"""Synthetic MNIST-geometry rows with an exact bits-per-pixel floor.
+"""Synthetic MNIST-geometry rows with an exact bits-per-pixel floor, and
+the way back from logit space to pixels.
 
-A copy of `umnn_tpu/data/images.py::synthetic_mnist_ar1` (`:122-189`,
+Copies of `umnn_tpu/data/images.py::synthetic_mnist_ar1` (`:122-189`,
 numpy and scipy only): logit-space 784-d rows from a raster-order AR(1)
-Gaussian copula, made from a seed with no download.
+Gaussian copula, made from a seed with no download; and of ``logit_back``
+(`:42-45`).
 """
 
 from __future__ import annotations
@@ -10,10 +12,21 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["ALPHA", "FlowImageData", "synthetic_mnist_ar1"]
+__all__ = ["ALPHA", "FlowImageData", "logit_back", "synthetic_mnist_ar1"]
 
 ALPHA = 1e-6  # logit-transform guard
+
+
+def logit_back(x) -> np.ndarray:
+    """Logit space to ``[0, 1]`` pixel space: ``(sigmoid(x) - ALPHA) / (1 -
+    2 ALPHA)``, the sigmoid in float64; float32 out. ``x``: an array or a
+    tensor on any device."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    s = 1.0 / (1.0 + np.exp(-np.asarray(x, np.float64)))
+    return ((s - ALPHA) / (1 - 2 * ALPHA)).astype(np.float32)
 
 
 @dataclasses.dataclass

@@ -1,13 +1,15 @@
 """UMNNMAFFlow: a stack of UMNN-MAF blocks with a feature reversal between
 blocks.
 
-PyTorch counterpart of `umnn_tpu/models/flow.py:26-125,148-158`. The forward
+PyTorch counterpart of `umnn_tpu/models/flow.py:26-158`. The forward
 composes ``rev . net_k . rev . ... . rev . net_0`` and a trailing reversal
 restores the original order; the reversal alternates the autoregressive
 direction between blocks. With ``cond_in > 0`` every block is conditioned on
 a context (ConditionalMADE embeddings), which each method takes as
 ``context=`` and hands unchanged to every block. The Lipschitz controls
-(`:148-158`) go block by block.
+(`:148-158`) go block by block. ``invert`` runs the blocks' inverses in
+reverse, with the reversals in JAX's places (`:126-140`), and ``sample``
+inverts standard-normal draws from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -81,6 +83,16 @@ class UMNNMAFFlow(nn.Module):
         own feature order (the sum over dimensions downstream ignores it)."""
         return self._log_jac_and_z(x, context, **quad)[0]
 
+    def compute_log_jac_bis(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad):
+        """``(z, summed per-dimension log-Jacobian)``, each block embedding
+        ``x`` once for both (`umnn_tpu/models/flow.py:79-88`)."""
+        log_jac = torch.zeros_like(x)
+        for block in self.blocks:
+            x, lj = block.compute_log_jac_bis(x, context, **quad)
+            x = self._rev(x)
+            log_jac = log_jac + lj
+        return self._rev(x), log_jac
+
     def compute_ll(self, x: torch.Tensor, context: torch.Tensor | None = None, **quad):
         """Exact log-likelihood under a standard-normal base.
 
@@ -102,6 +114,42 @@ class UMNNMAFFlow(nn.Module):
         """Bits per pixel for logit-dequantized images: ``(bpp, ll, z)``."""
         ll, z = self.compute_ll(x, context)
         return bits_per_pixel(ll, x, alpha), ll, z
+
+    def invert(
+        self,
+        z: torch.Tensor,
+        iters: int = 10,
+        context: torch.Tensor | None = None,
+        method: str = "bisection",
+        **kw,
+    ) -> torch.Tensor:
+        """The inverse transform: the blocks in reverse, each inverted by
+        ``method``, ``"bisection"`` (:meth:`UMNNMAF.invert`, the reference's)
+        or ``"newton"`` (:meth:`UMNNMAF.invert_newton`; ``iters`` about 30).
+        ``kw`` goes to the block's method (``nb_candidates``, ``x_bound``,
+        ``damping``)."""
+        if method not in ("bisection", "newton"):
+            raise ValueError(f"method {method!r} is not 'bisection' or 'newton'")
+        z = self._rev(z)
+        for block in reversed(self.blocks):
+            inv = block.invert_newton if method == "newton" else block.invert
+            z = inv(self._rev(z), iters, context, **kw)
+        return z
+
+    def sample(
+        self,
+        n: int,
+        generator: torch.Generator,
+        iters: int = 10,
+        context: torch.Tensor | None = None,
+        method: str = "bisection",
+        **kw,
+    ) -> torch.Tensor:
+        """``n`` samples: ``z ~ N(0, I)`` drawn from ``generator``, which
+        lives on the flow's device, then :meth:`invert`."""
+        device = self.blocks[0].scaling.device
+        z = torch.randn(n, self.nb_in, generator=generator, device=device)
+        return self.invert(z, iters, context, method, **kw)
 
     def compute_lipschitz(self, generator=None, inits=None, nb_iter: int = 10) -> torch.Tensor:
         """Product of the blocks' integrand estimates; ``inits[i][j]``: the

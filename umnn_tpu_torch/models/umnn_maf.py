@@ -29,6 +29,14 @@ Lipschitz control (`UMNNMAF.py:26-34,289-301`): ``compute_lipschitz``
 multiplies power-iteration estimates of the integrand layers' spectral
 norms, and ``force_lipschitz`` divides each layer's weight by
 ``max(sigma / L, 1)`` in place, biases kept.
+
+Inversion (`umnn_tpu/models/umnn_maf.py:411-527`), under
+``torch.inference_mode()``: ``invert_newton`` iterates Jacobi-Newton over
+every dimension at once, each iteration one forward; ``invert`` is the
+reference's gridded bisection, one dimension at a time, whose candidates'
+integrals go to :func:`fused_cc_integral` (rows ``[B, C]``, features
+``[B, C, e]``) on the kernel route, so both run on the forward kernels on
+the card.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from torch import nn
 from umnn_tpu_torch.nn.core import MLP
 from umnn_tpu_torch.nn.made import MADE, ConditionalMADE
 from umnn_tpu_torch.ops.integrand_kernel import fused_cc_integral
-from umnn_tpu_torch.ops.quadrature import cc_tensors, neural_integral
+from umnn_tpu_torch.ops.quadrature import cc_tensors, integrate, neural_integral
 
 __all__ = [
     "BACKENDS", "EmbeddingNetwork", "IntegrandNetwork", "UMNNMAF", "power_iteration_sigma",
@@ -230,6 +238,22 @@ class UMNNMAF(nn.Module):
             )
         return use
 
+    def _integral(self, x: torch.Tensor, h_dm: torch.Tensor, nodes, weights) -> torch.Tensor:
+        """``∫_0^x f(t, h) dt`` on the kernel route; ``h_dm`` is ``[..., e]``
+        per entry of ``x``."""
+        layers = self.net.integrand.layers
+        return fused_cc_integral(
+            [l.weight for l in layers],
+            [l.bias for l in layers],
+            x.contiguous(),
+            h_dm.contiguous(),
+            nodes,
+            weights,
+            neg_slope=0.01,
+            pack2=self.pack2,
+            pack4=self.pack4,
+        )
+
     def forward_with_embedding(
         self,
         x: torch.Tensor,
@@ -243,18 +267,7 @@ class UMNNMAF(nn.Module):
             nodes, weights = cc_tensors(nb_steps or self.nb_steps, x.device, x.dtype)
         integrand = self.net.integrand
         if self._use_kernel(x):
-            layers = integrand.layers
-            z = fused_cc_integral(
-                [l.weight for l in layers],
-                [l.bias for l in layers],
-                x.contiguous(),
-                integrand.fold_embedding(h).contiguous(),
-                nodes,
-                weights,
-                neg_slope=0.01,
-                pack2=self.pack2,
-                pack4=self.pack4,
-            )
+            z = self._integral(x, integrand.fold_embedding(h), nodes, weights)
         else:
             z = neural_integral(
                 integrand, torch.zeros_like(x), x, h, nodes=nodes, weights=weights
@@ -288,6 +301,95 @@ class UMNNMAF(nn.Module):
         ll, z = self.compute_ll(x, context)
         return bits_per_pixel(ll, x, alpha), ll, z
 
+    def invert_newton(
+        self,
+        z: torch.Tensor,
+        iters: int = 30,
+        context: torch.Tensor | None = None,
+        x_bound: float = 50.0,
+        damping: float = 1.0,
+    ) -> torch.Tensor:
+        """Parallel Jacobi-Newton inversion, every dimension at once
+        (`umnn_tpu/models/umnn_maf.py:411-444`).
+
+        From ``x = 0``, each iteration re-embeds, runs the forward and takes
+        ``x <- clip(x - damping (forward(x) - z) / max(J, 1e-6), +-x_bound)``
+        with the diagonal Jacobian ``J = exp(s) f(x, h)``: one launch of the
+        forward kernel an iteration on the kernel route.
+        """
+        with torch.inference_mode():
+            s = torch.exp(self.scaling)
+            x = torch.zeros_like(z)
+            for _ in range(iters):
+                h = self.embed(x, context)
+                zx = self.forward_with_embedding(x, h)
+                jac = s * self.net.integrand(x, h)
+                step = (zx - z) / torch.clamp(jac, min=1e-6)
+                x = torch.clamp(x - damping * step, -x_bound, x_bound)
+        return x.clone()  # a normal tensor, usable outside inference mode
+
+    def invert(
+        self,
+        z: torch.Tensor,
+        iters: int = 10,
+        context: torch.Tensor | None = None,
+        nb_candidates: int = 10,
+        x_bound: float = 50.0,
+    ) -> torch.Tensor:
+        """The reference's gridded bisection, one dimension at a time
+        (`umnn_tpu/models/umnn_maf.py:446-527`).
+
+        For dimension ``j``: re-embed the partly inverted ``x`` (``h_j``
+        depends only on ``x_{<j}``), then ``iters`` times evaluate
+        ``nb_candidates`` abscissae spread over the bracket ``[left,
+        right]`` (from ``+-x_bound``), take the candidate whose ``z`` is
+        nearest ``z_j`` (the first on ties) and keep the grid cell between
+        it and its neighbour on ``z_j``'s side; ``x_j`` is the final
+        bracket's midpoint. The bracket shrinks by ``1 / (nb_candidates -
+        1)`` a round. The candidates' integrals are one
+        :func:`fused_cc_integral` call a round on the kernel route (one
+        launch of the block's forward kernel), JAX's ``integrate`` of the
+        same integrand on the plain route.
+        """
+        B, D = z.shape
+        C = nb_candidates
+        use_kernel = self._use_kernel(z)
+        integrand = self.net.integrand
+
+        def integrals(xc, h_c):  # [B, C], [B, C, e] -> [B, C]
+            if use_kernel:
+                return self._integral(xc, h_c, nodes, weights)
+            return integrate(
+                lambda t, hh: integrand.mlp(torch.cat([t, hh], dim=-1)),
+                torch.zeros_like(xc)[..., None], xc[..., None], h_c, nodes, weights,
+            )[..., 0]
+
+        with torch.inference_mode():
+            grid = _unit_grid(C, z.dtype, z.device)
+            s_all = torch.exp(self.scaling)
+            nodes, weights = cc_tensors(self.nb_steps, z.device, z.dtype)
+            x_inv = torch.zeros_like(z)
+            for j in range(D):
+                h_j = integrand.fold_embedding(self.embed(x_inv, context))[:, j, :]  # [B, e]
+                offset = h_j[:, :1]  # the first embedding block is z0_j
+                z_j = z[:, j]
+                h_c = h_j[:, None, :].expand(B, C, h_j.shape[-1]).contiguous()
+                left = torch.full((B,), -x_bound, dtype=z.dtype, device=z.device)
+                right = torch.full((B,), x_bound, dtype=z.dtype, device=z.device)
+                for _ in range(iters):
+                    xc = left[:, None] + grid[None, :] * (right - left)[:, None]  # [B, C]
+                    z_est = s_all[j] * (offset + integrals(xc, h_c))
+                    c_star = torch.argmin(torch.abs(z_est - z_j[:, None]), dim=1, keepdim=True)
+                    z_val = z_est.gather(1, c_star)[:, 0]
+                    x_mid = xc.gather(1, c_star)[:, 0]
+                    x_lo = xc.gather(1, torch.clamp(c_star - 1, 0, C - 1))[:, 0]
+                    x_hi = xc.gather(1, torch.clamp(c_star + 1, 0, C - 1))[:, 0]
+                    below = z_val < z_j  # the transform increases
+                    left = torch.where(below, x_mid, x_lo)
+                    right = torch.where(below, x_hi, x_mid)
+                x_inv[:, j] = 0.5 * (left + right)
+        return x_inv.clone()
+
     def compute_lipschitz(self, generator=None, inits=None, nb_iter: int = 10) -> torch.Tensor:
         """The integrand's Lipschitz estimate (`:395-398`)."""
         return self.net.integrand.compute_lipschitz(generator, inits, nb_iter)
@@ -296,6 +398,15 @@ class UMNNMAF(nn.Module):
         """Project the integrand's layers (`:400-409`); MADE and the
         scaling are untouched."""
         self.net.integrand.force_lipschitz(L, generator, inits)
+
+
+def _unit_grid(n: int, dtype, device) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` to the bit, as XLA computes it: ``i``
+    times the float32 reciprocal of ``n - 1``, then the endpoint 1."""
+    if n < 2:
+        return torch.zeros(n, dtype=dtype, device=device)
+    inner = torch.arange(n - 1, dtype=dtype, device=device) * (1.0 / (n - 1))
+    return torch.cat([inner, torch.ones(1, dtype=dtype, device=device)])
 
 
 def bits_per_pixel(ll: torch.Tensor, x: torch.Tensor, alpha: float) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of `umnn_tpu/nn/made.py`: :func:`build_made_masks` is a
 copy of `:30-76`, :class:`MADE` applies the masks at use, ``w * m``, as
-`:121-128` does, and :class:`ConditionalMADE` is `:166-209`. Masks are
+`:121-128` does, with the Gaussian MADE's helpers and its sequential
+inverse (`:129-164`), and :class:`ConditionalMADE` is `:166-209`. Masks are
 buffers in ``nn.Linear``'s ``[dout, din]`` layout.
 
 Layout contract: for ``nout = k * nin``, output column ``j*nin + d`` is the
@@ -11,6 +12,7 @@ j-th output feature of input dimension ``d``; the last mask is tiled k times.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import numpy as np
@@ -74,7 +76,9 @@ class MADE(nn.Module):
         device: torch.device | str = "cpu",
     ):
         super().__init__()
-        masks, _ = build_made_masks(nin, hidden_sizes, nout)
+        masks, order = build_made_masks(nin, hidden_sizes, nout)
+        # i_map[d]: the input slot of degree d, the order of inversion (`:111`)
+        self.i_map = [int(k) for k in np.argsort(order)]
         sizes = [nin, *hidden_sizes, nout]
         self.layers = nn.ModuleList(
             torch_linear_init(gen, d0, d1, device) for d0, d1 in zip(sizes[:-1], sizes[1:])
@@ -91,6 +95,39 @@ class MADE(nn.Module):
         for layer, m in zip(self.layers[:-1], masks[:-1]):
             x = F.relu(F.linear(x, layer.weight * m, layer.bias))
         return F.linear(x, self.layers[-1].weight * masks[-1], self.layers[-1].bias)
+
+    # --- Gaussian MADE (nout == 2 * nin) -------------------------------------
+
+    def _mu_sigma(self, x: torch.Tensor):
+        nin = self.layers[0].in_features
+        t = self(x)
+        return t[..., :nin], t[..., nin:]
+
+    def forward_gaussian(self, x: torch.Tensor) -> torch.Tensor:
+        """``z = (x - mu(x)) exp(-sigma(x))``."""
+        mu, sigma = self._mu_sigma(x)
+        return (x - mu) * torch.exp(-sigma)
+
+    def log_likelihood(self, x: torch.Tensor):
+        """``(ll, z)``: the standard-normal log-density of ``z`` plus the
+        log-determinant ``-sum(sigma)``."""
+        mu, sigma = self._mu_sigma(x)
+        z = (x - mu) * torch.exp(-sigma)
+        log_prob_gauss = -0.5 * torch.sum(math.log(2 * math.pi) + z**2, dim=-1)
+        return -torch.sum(sigma, dim=-1) + log_prob_gauss, z
+
+    @torch.no_grad()
+    def invert(self, z: torch.Tensor) -> torch.Tensor:
+        """The x with ``forward_gaussian(x) = z``: one dimension a pass, in
+        the order of degrees, each from the dimensions set before it."""
+        nin = self.layers[0].in_features
+        if self.layers[-1].out_features != 2 * nin:
+            raise ValueError("invert requires a Gaussian MADE (nout == 2*nin)")
+        u = torch.zeros_like(z)
+        for idx in self.i_map:
+            t = self(u)
+            u[..., idx] = z[..., idx] * torch.exp(t[..., nin + idx]) + t[..., idx]
+        return u
 
 
 class ConditionalMADE(MADE):
