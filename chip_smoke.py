@@ -123,7 +123,26 @@ scipy. Phases, each printing one flushed JSON line:
            host breakdown of its calls (host_breakdown); the unpacked pair's
            shares of their bounds and launch shapes, and the forward's
            device time beside its acceptance limit (not enforced);
-16. sample inversion and sampling: at the UCI parity configuration (the
+16. monotonic  MonotonicNN (examples/train_monotonic.py's model, ReLU
+           integrand) at the driver's widths 3-100-100-100-1 (the
+           unpacked pair), at 3-64-64-1 (pack-2), 3-32-32-1 (pack-4) and at
+           in_d = 1, R = 512, K = 51: values and gradients on the kernel
+           route against backend="torch", one forward and one backward
+           launch a training step, increasing in x1; h with no column
+           refused before any launch; the unpacked pair at that block
+           against its plain versions, device times beside bounds;
+           monotonic_train_step_ms with the device's idle share; the
+           driver at the verify command (exit 0, monotone, MSE falling,
+           61 + 60 launches); the class-conditional MNIST flow at full
+           width (cond_in = 10, batch 100 of the uniform stand-in): its
+           routes' gradients, 5 + 5 launches a step, and its driver with
+           -conditionnal -synthetic for one short epoch and -gen 10; the
+           CC solver on the calibration flow (values within KERNEL_TOL of
+           the kernel route, no integrand kernel) and its inference peak
+           memory at the MNIST flow below the node megabatch's; the
+           accumulation step with 4 microbatches against one backward of
+           the batch, 20 + 20 launches, with both peaks;
+17. sample inversion and sampling: at the UCI parity configuration (the
            calibration flow, batch 500, D = 6, 5 blocks; the pack-2 forward)
            the reference's bisection (10 rounds of 10 candidates) and
            Jacobi-Newton (30 iterations), at the MNIST configuration at full
@@ -168,16 +187,23 @@ import numpy as np
 import torch
 
 from umnn_tpu_torch import UMNNMAFFlow
-from umnn_tpu_torch.data.images import synthetic_mnist_ar1
+from umnn_tpu_torch.data.images import load_mnist_flow, synthetic_mnist_ar1
 from umnn_tpu_torch.data.toy import inf_train_gen
 from umnn_tpu_torch.data import uci
-from umnn_tpu_torch.examples import train_calibration, train_toy, train_uci
+from umnn_tpu_torch.examples import (
+    train_calibration,
+    train_mnist,
+    train_monotonic,
+    train_toy,
+    train_uci,
+)
+from umnn_tpu_torch.models.monotonic import MonotonicNN
 from umnn_tpu_torch.nn.core import torch_linear_init
 from umnn_tpu_torch.ops import _build, wide_split
 from umnn_tpu_torch.ops import integrand_kernel as ik
 from umnn_tpu_torch.ops.quadrature import cc_tensors, padded_cc_quadrature
 from umnn_tpu_torch.training.checkpoint import CheckpointManager
-from umnn_tpu_torch.training.loops import make_optimizer, make_train_step
+from umnn_tpu_torch.training.loops import make_accum_train_step, make_optimizer, make_train_step
 
 T0 = time.perf_counter()
 BUDGET_S = 600.0  # the run stops with an error past this, half the caller's limit
@@ -271,6 +297,26 @@ WIDE_BATCH = 500
 # defaults (the calibration flow's) with -hidden_derivative 256 256 256 256,
 # the timing block's integrand, batch 500; standard normal rows from a seed.
 WIDE_TRAIN_FLOW = dict(CALIB, hidden_derivative=(256, 256, 256, 256))
+# The monotonic regressor of examples/train_monotonic.py at its default
+# flags: MonotonicNN(3, (100, 100, 100)), batch 512, K = 51, ReLU hidden
+# layers; its integrand 3-100-100-100-1 runs on the unpacked pair. The
+# driver runs at the verify command. MONO_CASES: the model at the driver's
+# widths, at widths the pack-2 and pack-4 pairs take, and at in_d = 1 (h
+# with no column: the model gives W1 and h a zero column), with the
+# forward and backward kernel each must launch once a training step.
+MONO_IN, MONO_HIDDEN, MONO_BATCH, MONO_STEPS = 3, (100, 100, 100), 512, 50
+MONO_WIDTHS = [MONO_IN, *MONO_HIDDEN, 1]
+MONO_ARGV = "-nb_epoch 60 -nb_steps 30 -b_size 256"
+MONO_CASES = {
+    "driver_widths": (MONO_IN, MONO_HIDDEN, "integrand_fwd", "integrand_bwd"),
+    "pack2_3_64_64_1": (MONO_IN, (64, 64), "integrand_fwd_p2", "integrand_bwd_p2"),
+    "pack4_3_32_32_1": (MONO_IN, (32, 32), "integrand_fwd_p4", "integrand_bwd_p4"),
+    "in_d_1": (1, MONO_HIDDEN, "integrand_fwd", "integrand_bwd"),
+}
+# The class-conditional MNIST driver, one short epoch on the uniform
+# stand-in (1,000 train, 200 valid and 200 test rows), then 10 images.
+COND_ARGV = ("-conditionnal -synthetic -nb_epoch 1 -steps_per_epoch 3 -gen 10 -device cuda")
+ACCUM_STEPS = 4  # make_accum_train_step's microbatches at the MNIST batch
 NONE_LAUNCHED = {k: 0 for k in ik.LAUNCHES}
 UNPACKED = {"pack2": False, "pack4": False}  # the unpacked pair at any width
 
@@ -1048,6 +1094,22 @@ def trainer(flow, weight_decay=1e-2):
     return make_train_step(lambda *batch: -flow.compute_ll(*batch)[0].mean(), optimizer)
 
 
+def grad_gaps(model, plain, what: str) -> dict:
+    """Every parameter gradient of ``model`` against ``plain``'s (the same
+    seeded weights), within TRAIN_GRAD_GAP of its tensor's largest entry
+    (in_d = 1: the free net's first weight has no entry)."""
+    gaps = {}
+    for (pname, a), b in zip(model.named_parameters(), plain.parameters()):
+        if a.numel() == 0:
+            continue
+        check(a.grad is not None and bool(torch.isfinite(a.grad).all()), f"{what}: grad of {pname}")
+        gaps[pname] = float((a.grad - b.grad).abs().max() / (b.grad.abs().max() + 1e-30))
+    name = max(gaps, key=gaps.get)
+    check(gaps[name] <= TRAIN_GRAD_GAP,
+          f"{what}: gradient of {name} differs between routes by {gaps[name]}")
+    return {"grad_gap_max": gaps[name], "grad_gap_param": name}
+
+
 def route_gaps(flow, plain, what: str, *batch, **quad) -> tuple:
     """``-mean(compute_ll)`` and its gradients on the kernel route (``flow``)
     against the Leibniz route (``plain``, the same seeded weights): the loss
@@ -1062,14 +1124,7 @@ def route_gaps(flow, plain, what: str, *batch, **quad) -> tuple:
     loss_p.backward()
     torch.cuda.synchronize()
     loss_err = compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, f"{what} loss")
-    gaps = {}
-    for (pname, a), b in zip(flow.named_parameters(), plain.parameters()):
-        check(a.grad is not None and bool(torch.isfinite(a.grad).all()), f"{what}: grad of {pname}")
-        gaps[pname] = float((a.grad - b.grad).abs().max() / (b.grad.abs().max() + 1e-30))
-    name = max(gaps, key=gaps.get)
-    check(gaps[name] <= TRAIN_GRAD_GAP,
-          f"{what}: gradient of {name} differs between routes by {gaps[name]}")
-    return loss_err, {"grad_gap_max": gaps[name], "grad_gap_param": name}
+    return loss_err, grad_gaps(flow, plain, what)
 
 
 def step_launches(step, *batch) -> dict:
@@ -2151,6 +2206,282 @@ def phase_sample(dev, name):
     return res, launches
 
 
+def mono_batch(rows: int, seed: int, dev) -> tuple:
+    """A batch of the monotonic driver's regression: x ~ U(-2, 2)^3 from a
+    generator on the card, and its target."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(rows, MONO_IN, generator=gen, device=dev) * 4.0 - 2.0
+    return x, train_monotonic.target(x)
+
+
+def mono_case(in_d: int, hidden: tuple, fwd: str, bwd: str, dev) -> dict:
+    """One MonotonicNN on both routes at the driver's batch and nodes:
+    values within SLICE_TOL, gradients of its MSE within TRAIN_GRAD_GAP,
+    exactly one launch of ``fwd`` and of ``bwd`` a training step, strictly
+    increasing in x1 on the driver's grid."""
+    what = f"monotonic {in_d}-{'-'.join(map(str, hidden))}"
+    model = MonotonicNN(in_d, hidden, nb_steps=MONO_STEPS, backend="auto", seed=0)
+    plain = MonotonicNN(in_d, hidden, nb_steps=MONO_STEPS, backend="torch", seed=0)
+    x, y = mono_batch(MONO_BATCH, 1, dev)
+    x = x[:, :in_d]
+    loss_k = train_monotonic.monotonic_mse(model, x, y)
+    loss_k.backward()
+    loss_p = train_monotonic.monotonic_mse(plain, x, y)
+    loss_p.backward()
+    with torch.no_grad():
+        value = compare(model(x[:, :1], x[:, 1:]), plain(x[:, :1], x[:, 1:]), SLICE_TOL,
+                        f"{what} values")
+    loss = compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, f"{what} loss")
+    gaps = grad_gaps(model, plain, what)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3, grad_clip=None)
+    launches = step_launches(train_monotonic.fit_step, train_monotonic.monotonic_mse, model,
+                             opt, x, y)
+    want = {**NONE_LAUNCHED, fwd: 1, bwd: 1}
+    check(launches == want, f"{what}: launches in one step {launches}, want {want}")
+    monotone = train_monotonic.is_monotone(model, dev)
+    check(monotone, f"{what}: not increasing in x1 on the driver's grid")
+    return {"values": value, "loss": loss, **gaps, "launches_per_step": launches,
+            "monotone": monotone}
+
+
+def run_driver(main, argv: list) -> tuple:
+    """A driver's ``main(argv)`` with its stdout captured and its launches
+    counted from 0: (result, stdout lines, launches, seconds)."""
+    for k in ik.LAUNCHES:
+        ik.LAUNCHES[k] = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    torch.cuda.synchronize()
+    return result, out.getvalue().splitlines(), dict(ik.LAUNCHES), time.perf_counter() - t
+
+
+def mono_block(dev, name) -> dict:
+    """The unpacked pair at the monotonic driver's block (R = 512, K = 51,
+    3-100-100-100-1, ReLU) against its plain versions (the forward within
+    KERNEL_TOL, the backward against float64 by phase bwd's rule), and the
+    device time of one launch of each beside its bound."""
+    gen = torch.Generator().manual_seed(11)
+    x, _ = mono_batch(MONO_BATCH, 2, dev)
+    x, h = x[:, 0].contiguous(), x[:, 1:].contiguous()
+    ws, bs, _ = integrand_inputs(gen, MONO_WIDTHS, 1, dev)
+    g = torch.randn(MONO_BATCH, generator=gen).to(dev)
+    nodes, ccw = cc_tensors(MONO_STEPS, dev)
+    K = nodes.numel()
+    with torch.inference_mode():
+        fwd = lambda: ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, neg_slope=0.0)  # noqa: E731
+        plain = lambda: ik.fused_cc_integral_plain(ws, bs, x, h, nodes, ccw, 0.0)  # noqa: E731
+        fwd_err = compare(fwd(), plain(), KERNEL_TOL, "monotonic block fwd")
+        fwd_t = (median_ms(fwd, n=20, warmup=5), device_ms(fwd, "integrand_fwd"),
+                 median_ms(plain, n=20, warmup=5))
+    args = (ws, bs, x, h, nodes, ccw, g, 0.0)
+    bwd = lambda: ik.fused_cc_integral_bwd(*args)  # noqa: E731
+    bwd_err = worst(compare_bwd(bwd(), ik.fused_cc_integral_bwd_plain(*args), bwd_plain64(*args),
+                                "monotonic block bwd"))
+    bwd_t = (median_ms(bwd, n=20, warmup=5), device_ms(bwd, "integrand_bwd"),
+             median_ms(lambda: ik.fused_cc_integral_bwd_plain(*args), n=20, warmup=5))
+    out = {}
+    for kernel, kind, err, (ms, dms, pms), flops, nbytes in (
+        ("integrand_fwd", "fwd", fwd_err, fwd_t, kernel_flops, kernel_bytes),
+        ("integrand_bwd", "bwd", bwd_err, bwd_t, bwd_kernel_flops, bwd_kernel_bytes),
+    ):
+        b = bound(flops(MONO_WIDTHS, MONO_BATCH, K), nbytes(MONO_WIDTHS, MONO_BATCH, K), name)
+        out[kernel] = {"rows": MONO_BATCH, "nodes": K, "widths": MONO_WIDTHS, "neg_slope": 0.0,
+                       "ms": ms, "device_ms_per_launch": dms, "plain_ms": pms,
+                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                       "device_bound_share": b["bound_ms"] / dms, "bound": b, **err,
+                       "launch_shape": launch_shape(kind, MONO_WIDTHS, K)}
+    return out
+
+
+def cc_solver(x_mnist, dev) -> dict:
+    """The node-sequential solver: the calibration flow's values under
+    solver="CC" against the "CCParallel" kernel route (KERNEL_TOL) with no
+    integrand kernel launched, and the peak memory of an inference-mode
+    compute_ll of the full-width MNIST flow under "CC" against
+    backend="torch" (the node megabatch), which it must undercut."""
+    sample, _, _ = train_calibration.make_ground_truth(CALIB["nb_in"], 1000)
+    x = torch.as_tensor(sample(np.random.RandomState(3), CALIB_BATCH), device=dev)
+    flow_k = UMNNMAFFlow(**CALIB, backend="auto", seed=0)
+    flow_c = UMNNMAFFlow(**CALIB, backend="auto", seed=0, solver="CC")
+    with torch.inference_mode():
+        ll_k, z_k = flow_k.compute_ll(x)
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        ll_c, z_c = flow_c.compute_ll(x)
+        torch.cuda.synchronize()
+        launched = dict(ik.LAUNCHES)
+    check(launched == NONE_LAUNCHED, f"cc solver: launched {launched}")
+    errs = {"ll": compare(ll_c, ll_k, KERNEL_TOL, "cc solver ll"),
+            "z": compare(z_c, z_k, KERNEL_TOL, "cc solver z")}
+    del flow_k, flow_c
+    peaks, lls = {}, {}
+    for label, kw in (("cc", {"solver": "CC"}), ("torch", {"backend": "torch"})):
+        flow = UMNNMAFFlow(**MNIST, seed=0, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            lls[label] = flow.compute_ll(x_mnist)[0]
+        torch.cuda.synchronize()
+        peaks[label] = {"peak_over_params_bytes": torch.cuda.max_memory_allocated() - base,
+                        "seconds": time.perf_counter() - t}
+        del flow
+    check(peaks["cc"]["peak_over_params_bytes"] < peaks["torch"]["peak_over_params_bytes"],
+          f"cc solver: peak memory {peaks}")
+    return {"calibration": errs, "launches": launched, "mnist_inference": peaks,
+            "mnist_ll_cc_against_torch": compare(lls["cc"], lls["torch"], SLICE_TOL,
+                                                 "cc solver mnist ll")}
+
+
+def accum_step(x) -> dict:
+    """make_accum_train_step with ACCUM_STEPS microbatches on the
+    full-width MNIST flow at batch 100, against make_train_step's step on
+    a flow of the same seeded weights: the loss within rtol 1e-4, every
+    averaged gradient within TRAIN_GRAD_GAP of its tensor's largest entry
+    (no clip, so each step leaves its gradients in ``.grad``; the
+    parameters after Adam are not compared), 5 x ACCUM_STEPS launches of
+    each unpacked kernel, and each step's peak memory over what was
+    allocated before it (parameters, Adam's new state and the
+    activations)."""
+    out = {}
+    for label in ("single", "accum"):
+        flow = UMNNMAFFlow(**MNIST, seed=1)
+        loss_fn = lambda xb, f=flow: -f.compute_ll(xb)[0].mean()  # noqa: E731
+        opt = make_optimizer(flow.parameters(), grad_clip=None)
+        step = (make_train_step(loss_fn, opt) if label == "single"
+                else make_accum_train_step(loss_fn, opt, ACCUM_STEPS))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ik.LAUNCHES:
+            ik.LAUNCHES[k] = 0
+        loss = step(x)
+        torch.cuda.synchronize()
+        out[label] = {"loss": loss, "launches": dict(ik.LAUNCHES),
+                      "peak_over_before_bytes": torch.cuda.max_memory_allocated() - base,
+                      "grads": {n: p.grad for n, p in flow.named_parameters()}}
+        del flow, opt, step
+    single, accum = out["single"], out["accum"]
+    n = MNIST["nb_flow"]
+    check(single["launches"] == {**NONE_LAUNCHED, "integrand_fwd": n, "integrand_bwd": n},
+          f"accum: the single step launched {single['launches']}")
+    check(accum["launches"] == {**NONE_LAUNCHED, "integrand_fwd": n * ACCUM_STEPS,
+                                "integrand_bwd": n * ACCUM_STEPS},
+          f"accum: launches in one step {accum['launches']}")
+    loss_err = compare(accum["loss"], single["loss"], dict(rtol=1e-4, atol=0.0), "accum loss")
+    gaps = {name: float((g - single["grads"][name]).abs().max()
+                        / (single["grads"][name].abs().max() + 1e-30))
+            for name, g in accum["grads"].items()}
+    worst_name = max(gaps, key=gaps.get)
+    check(gaps[worst_name] <= TRAIN_GRAD_GAP,
+          f"accum: gradient of {worst_name} off the whole batch's by {gaps[worst_name]}")
+    return {"accum_steps": ACCUM_STEPS, "batch": x.shape[0], "loss": loss_err,
+            "grad_gap_max": gaps[worst_name], "grad_gap_param": worst_name,
+            "launches_per_step": accum["launches"],
+            "peak_mem_over_before_bytes": {k: v["peak_over_before_bytes"] for k, v in out.items()}}
+
+
+def phase_monotonic(dev, name, x_mnist):
+    """The slice's paths on the card: MonotonicNN at the driver's widths
+    (the unpacked pair, ReLU), at pack-2 and pack-4 widths and at in_d = 1,
+    each route against the other; h with no column refused before any
+    launch; the unpacked pair at the driver's block against its plain
+    versions, with device times; the training step's time and idle share;
+    the driver at the verify command; the class-conditional MNIST flow at
+    full width and its driver; the CC solver; the accumulation step.
+    Returns the block's times and the launches counted in the phase's
+    main-path runs (steps and drivers; no comparison call)."""
+    t0 = time.perf_counter()
+    counted = {k: 0 for k in ik.LAUNCHES}
+
+    def count(launches):
+        for k, v in launches.items():
+            counted[k] += v
+
+    cases = {}
+    for label, (in_d, hidden, fwd, bwd) in MONO_CASES.items():
+        cases[label] = mono_case(in_d, hidden, fwd, bwd, dev)
+        count(cases[label]["launches_per_step"])
+    ws, bs, _ = integrand_inputs(torch.Generator().manual_seed(0), [1, 8, 1], 1, dev)
+    nodes, ccw = cc_tensors(MONO_STEPS, dev)
+    before = dict(ik.LAUNCHES)
+    try:
+        ik.fused_cc_integral(ws, bs, torch.ones(4, device=dev), torch.zeros(4, 0, device=dev),
+                             nodes, ccw, neg_slope=0.0)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and launched_since(before) == {}, "monotonic: h with no column was launched")
+    block = mono_block(dev, name)
+
+    # the training step at the driver's default, R = 512, K = 51
+    model = MonotonicNN(MONO_IN, MONO_HIDDEN, nb_steps=MONO_STEPS, seed=0)
+    opt = make_optimizer(model.parameters(), "adam", 1e-3, grad_clip=None)
+    x, y = mono_batch(MONO_BATCH, 3, dev)
+    step = functools.partial(train_monotonic.fit_step, train_monotonic.monotonic_mse, model,
+                             opt, x, y)
+    step_ms = median_ms(step, n=20, warmup=5)
+    profile = step_profile(step)
+    profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / step_ms
+
+    rc, lines, launches, seconds = run_driver(train_monotonic.main, MONO_ARGV.split())
+    mse = [float(l.split()[4]) for l in lines if l.startswith("epoch")]
+    epochs = int(MONO_ARGV.split()[1])
+    # one step a epoch, then the monotonicity check's forward
+    want = {**NONE_LAUNCHED, "integrand_fwd": epochs + 1, "integrand_bwd": epochs}
+    check(rc == 0 and lines[-1] == "monotone in x1: True", f"monotonic driver: {rc} {lines[-3:]}")
+    check(mse[-1] < mse[0], f"monotonic driver: MSE did not fall {mse}")
+    check(launches == want, f"monotonic driver: launched {launches}, want {want}")
+    count(launches)
+    driver = {"argv": MONO_ARGV, "rc": rc, "lines": lines, "launches": launches,
+              "seconds": seconds}
+
+    # the class-conditional MNIST flow at full width, on the uniform stand-in
+    data = load_mnist_flow(synthetic=True)
+    xc = torch.as_tensor(data.tst_x[:BATCH], device=dev)
+    ctx = torch.eye(10, device=dev)[torch.as_tensor(data.tst_y[:BATCH], device=dev)]
+    flow = UMNNMAFFlow(**MNIST, backend="auto", seed=0, cond_in=10)
+    plain = UMNNMAFFlow(**MNIST, backend="torch", seed=0, cond_in=10)
+    loss_err, gap = route_gaps(flow, plain, "conditional mnist", xc, ctx)
+    del plain
+    cond_launches = step_launches(trainer(flow), xc, ctx)
+    n = MNIST["nb_flow"]
+    check(cond_launches == {**NONE_LAUNCHED, "integrand_fwd": n, "integrand_bwd": n},
+          f"conditional mnist: launches in one step {cond_launches}")
+    count(cond_launches)
+    del flow
+    folder = _build.BUILD_DIR.parent / "chip_smoke_mnist_conditional"
+    shutil.rmtree(folder, ignore_errors=True)
+    result, lines, launches, seconds = run_driver(
+        train_mnist.main, COND_ARGV.split() + ["-folder", str(folder)])
+    imgs = np.load(folder / "generated.npy")
+    check(bool(np.isfinite(result["test_bpp"])) and imgs.shape == (10, 28, 28)
+          and bool(np.isfinite(imgs).all()), f"conditional mnist driver: {result} {imgs.shape}")
+    count(launches)
+    shutil.rmtree(folder, ignore_errors=True)
+    cond = {"batch": BATCH, "cond_in": 10, "loss": loss_err, **gap,
+            "launches_per_step": cond_launches,
+            "driver": {"argv": COND_ARGV, "result": result, "lines": lines,
+                       "launches": launches, "seconds": seconds,
+                       "generated_shape": list(imgs.shape)}}
+
+    solver = cc_solver(x_mnist, dev)
+    accum = accum_step(x_mnist)
+    count(accum["launches_per_step"])
+    report("monotonic", device=name, nvidia_smi=nvidia_smi(), widths=MONO_WIDTHS,
+           batch=MONO_BATCH, nodes=MONO_STEPS + 1, tol=SLICE_TOL, grad_gap_tol=TRAIN_GRAD_GAP,
+           cases=cases, h_with_no_column_refused=refused, block=block,
+           monotonic_train_step_ms=step_ms, monotonic_train_step_profile=profile,
+           driver=driver, conditional_mnist=cond, cc_solver=solver, accum=accum,
+           launches_counted=counted, phase_seconds=time.perf_counter() - t0)
+    return block, counted
+
+
 def phase_wide(gen, dev, calib, name):
     """The streamed pair, integrand_fwd_wide and integrand_bwd_wide, on what
     the staged pairs refuse, under backend "auto" (and "kernel" for the
@@ -2533,6 +2864,7 @@ def main() -> None:
            calib_train_step_profile=calib_profile, uci_train_step=uci_t, pack4_ab=p4_t,
            toy=toy_t,
            toy_train_step_profile=toy_profile)
+    mono_t, mono_launches = phase_monotonic(dev, name, batches[0])
     # last: its ~50,000 unprofiled launches and long traces came before
     # phase wide's exact-count traces once, and one of those lost launches
     sample_res, sample_launches = phase_sample(dev, name)
@@ -2562,6 +2894,7 @@ def main() -> None:
                 "uci_step_K51": uci_launches["step_K51"][kernel],
                 "uci_step_K101": uci_launches["step_K101"][kernel],
                 "uci_driver_run": uci_driver_launches[kernel],
+                "monotonic": mono_launches[kernel],
                 "sample": sample_launches[kernel]}
 
     def sample_times(kernel):
@@ -2579,10 +2912,14 @@ def main() -> None:
         entry("integrand_fwd", "_fwd_kernel", 106, fwd_errs, fwd_ms, fwd_device_ms,
               fwd_plain_ms, fwd_bound, launches["integrand_fwd"],
               launches_by_phase={"train_step": launches["integrand_fwd"],
+                                 "monotonic": mono_launches["integrand_fwd"],
                                  "sample": sample_launches["integrand_fwd"]},
-              sample=sample_times("integrand_fwd")),
+              monotonic=mono_t["integrand_fwd"], sample=sample_times("integrand_fwd")),
         entry("integrand_bwd", "_bwd_kernel", 156, bwd_errs, bwd_ms, bwd_device_ms,
-              bwd_plain_ms, bwd_bound, launches["integrand_bwd"]),
+              bwd_plain_ms, bwd_bound, launches["integrand_bwd"],
+              launches_by_phase={"train_step": launches["integrand_bwd"],
+                                 "monotonic": mono_launches["integrand_bwd"]},
+              monotonic=mono_t["integrand_bwd"]),
         # the calibration block's figures; the UCI driver's blocks in "uci"
         entry("integrand_fwd_p2", "_fwd_kernel_p2", 333, {**fwd_p2_errs, **uci_fwd_errs},
               calib_t["fwd_p2_ms"], calib_t["fwd_p2_device_ms"], calib_t["fwd_plain_ms"],
@@ -2599,11 +2936,14 @@ def main() -> None:
               toy_block["fwd_p4_ms"], toy_block["fwd_p4_device_ms"], toy_block["fwd_plain_ms"],
               toy_block["fwd_bound"], toy_launches["integrand_fwd_p4"],
               launches_by_phase={"toy_step": toy_launches["integrand_fwd_p4"],
+                                 "monotonic": mono_launches["integrand_fwd_p4"],
                                  "sample": sample_launches["integrand_fwd_p4"]},
               sample=sample_times("integrand_fwd_p4")),
         entry("integrand_bwd_p4", "_bwd_kernel_pn", 573, bwd_p4_errs,
               toy_block["bwd_p4_ms"], toy_block["bwd_p4_device_ms"], toy_block["bwd_plain_ms"],
-              toy_block["bwd_bound"], toy_launches["integrand_bwd_p4"]),
+              toy_block["bwd_bound"], toy_launches["integrand_bwd_p4"],
+              launches_by_phase={"toy_step": toy_launches["integrand_bwd_p4"],
+                                 "monotonic": mono_launches["integrand_bwd_p4"]}),
         # the port of _fwd_kernel and _bwd_kernel at the widths the staged
         # pairs refuse
         entry("integrand_fwd_wide", "_fwd_kernel", 106, wide_fwd_errs, wide_t["fwd_ms"],

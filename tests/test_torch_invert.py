@@ -76,7 +76,7 @@ def _gaussian_made(nin, hidden, seed):
 
     made_j = JaxMADE(nin, tuple(hidden), 2 * nin)
     params = jax.tree_util.tree_map(np.asarray, made_j.init(jax.random.PRNGKey(seed)))
-    made_t = MADE(nin, hidden, 2 * nin, torch.Generator().manual_seed(0))
+    made_t = MADE(nin, hidden, 2 * nin, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         for layer, p in zip(made_t.layers, params["layers"]):
             layer.weight.copy_(torch.tensor(p["w"].T))
@@ -111,7 +111,7 @@ def test_gaussian_made_invert_round_trips_and_matches_jax(nin, hidden):
 
 
 def test_gaussian_made_invert_refuses_a_non_gaussian_made():
-    made = MADE(4, (16,), 12, torch.Generator().manual_seed(0))
+    made = MADE(4, (16,), 12, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(ValueError, match="Gaussian MADE"):
         made.invert(torch.zeros(2, 4))
 

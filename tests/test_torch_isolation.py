@@ -186,6 +186,86 @@ def test_source_scan_covers_the_uci_slice():
     } <= scanned
 
 
+def test_monotonic_driver_runs_without_jax_and_refuses_a_missing_card():
+    proc = _run("""
+import runpy
+sys.argv = ["train_monotonic", "-nb_epoch", "1"]
+runpy.run_module("umnn_tpu_torch.examples.train_monotonic", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+
+
+def test_monotonic_slice_runs_on_the_cpu_without_jax():
+    """The monotonic driver, the MNIST stand-in, the CC solver and the
+    accumulation step, with jax and umnn_tpu blocked."""
+    out = _ok(_run("""
+import torch
+from umnn_tpu_torch.data import download, images
+from umnn_tpu_torch.examples import train_monotonic
+from umnn_tpu_torch.models.flow import UMNNMAFFlow
+from umnn_tpu_torch.training import loops
+from umnn_tpu_torch.utils import profiling, visualize
+from umnn_tpu_torch.utils.logging import AverageMeter
+rc = train_monotonic.main("-device cpu -nb_epoch 2 -nb_steps 4 -b_size 16".split())
+data = images.load_mnist_flow(synthetic=True)
+flow = UMNNMAFFlow(nb_flow=1, nb_in=3, hidden_derivative=(4,), hidden_embedding=(4,),
+                   embedding_s=2, solver="CC", device="cpu")
+step = loops.make_accum_train_step(lambda x: -flow.compute_ll(x)[0].mean(),
+                                   loops.make_optimizer(flow.parameters()), 2)
+loss = step(torch.randn(4, 3))
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "umnn_tpu")]
+print(rc, len(data.trn_x), bool(torch.isfinite(loss)))
+"""))
+    assert out.strip().splitlines()[-1] == "0 1000 True"
+
+
+# each call with "{dev}" where a device argument may go
+PUBLIC_CONSTRUCTORS = {
+    "torch_linear_init": "core.torch_linear_init(gen, 3, 2{dev})",
+    "MLP": "core.MLP([3, 4, 1], gen{dev})",
+    "MADE": "made.MADE(3, (6,), 6, gen{dev})",
+    "ConditionalMADE": "made.ConditionalMADE(3, 2, (6,), 10, gen{dev})",
+    "IntegrandNetwork": "umnn_maf.IntegrandNetwork(3, 3, (4,), gen{dev})",
+    "EmbeddingNetwork": "umnn_maf.EmbeddingNetwork(3, (6,), (4,), 2, gen{dev})",
+    "UMNNMAF": "umnn_maf.UMNNMAF(3, gen, 2, (6,), (4,){dev})",
+    "UMNNMAFFlow": "flow.UMNNMAFFlow(nb_in=3, hidden_embedding=(6,), hidden_derivative=(4,){dev})",
+    "IntegrandNN": "monotonic.IntegrandNN(3, (4,), gen{dev})",
+    "MonotonicNN": "monotonic.MonotonicNN(3, (4,){dev})",
+}
+
+
+@pytest.mark.parametrize("name", list(PUBLIC_CONSTRUCTORS))
+def test_public_constructor_without_device_raises_when_cuda_is_absent(name, monkeypatch):
+    """Each building block runs on the card unless the caller names the
+    CPU; with no card and no ``device`` it raises, and with
+    ``device="cpu"`` it builds there."""
+    import torch
+
+    from umnn_tpu_torch.models import flow, monotonic, umnn_maf
+    from umnn_tpu_torch.nn import core, made
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scope = {"core": core, "made": made, "umnn_maf": umnn_maf, "flow": flow,
+             "monotonic": monotonic, "gen": torch.Generator().manual_seed(0)}
+    call = PUBLIC_CONSTRUCTORS[name]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval(call.format(dev=""), scope)
+    built = eval(call.format(dev=", device='cpu'"), scope)
+    assert {p.device.type for p in built.parameters()} == {"cpu"}
+
+
+def test_source_scan_covers_the_monotonic_slice():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert {
+        "umnn_tpu_torch/models/monotonic.py", "umnn_tpu_torch/examples/train_monotonic.py",
+        "umnn_tpu_torch/data/images.py", "umnn_tpu_torch/data/download.py",
+        "umnn_tpu_torch/utils/profiling.py", "umnn_tpu_torch/utils/visualize.py",
+        "umnn_tpu_torch/utils/logging.py", "umnn_tpu_torch/ops/quadrature.py",
+        "umnn_tpu_torch/bridge.py",
+    } <= scanned
+
+
 def test_source_scan_covers_the_toy_slice():
     scanned = {p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")}
     assert {

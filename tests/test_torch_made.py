@@ -44,7 +44,7 @@ def _jax_made(nin, hidden, nout, seed):
 
 
 def _port_made(nin, hidden, nout, params):
-    made = MADE(nin, hidden, nout, torch.Generator().manual_seed(0))
+    made = MADE(nin, hidden, nout, torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         for layer, p in zip(made.layers, params["layers"]):
             layer.weight.copy_(torch.tensor(p["w"].T))

@@ -43,7 +43,7 @@ class PortIntegrand(torch.nn.Module):
 
     def __init__(self, layers):
         super().__init__()
-        self.mlp = MLP(SIZES, torch.Generator(), "LeakyReLU", "ELUPlus")
+        self.mlp = MLP(SIZES, torch.Generator(), "LeakyReLU", "ELUPlus", device="cpu")
         with torch.no_grad():
             for lin, l in zip(self.mlp.layers, layers):
                 lin.weight.copy_(torch.tensor(l["w"].T))

@@ -201,7 +201,8 @@ def test_the_streamed_backward_reads_each_w_in_place(fake_card, monkeypatch):
 def test_auto_on_the_cpu_computes_a_wide_integrand_without_asking(fake_card):
     lib = fake_card()
     block = UMNNMAF(4, torch.Generator().manual_seed(0), embedding_s=6,
-                    hidden_embedding=(8,), hidden_derivative=(129,), backend="auto")
+                    hidden_embedding=(8,), hidden_derivative=(129,), backend="auto",
+                    device="cpu")
     with torch.no_grad():
         z = block(torch.randn(3, 4))
     assert z.shape == (3, 4) and bool(torch.isfinite(z).all())

@@ -27,7 +27,7 @@ TOY = "-nb_steps 8 -b_size 64 -hidden_embedding 16 16 -hidden_derivative 8 8 -em
 TOY_FLOW = dict(nb_flow=1, nb_in=2, hidden_derivative=(8, 8), hidden_embedding=(16, 16),
                 embedding_s=4, nb_steps=8)
 MNIST = ("-device cpu -nb_flow 1 -hidden_embedding 16 -hidden_derivative 8 8 -embedding_s 2 "
-         "-ar1_rows 200 -steps_per_epoch 2 -nb_steps 4")
+         "-synthetic -synthetic_mode ar1 -ar1_rows 200 -steps_per_epoch 2 -nb_steps 4")
 MNIST_FLOW = dict(nb_flow=1, nb_in=784, hidden_derivative=(8, 8), hidden_embedding=(16,),
                   embedding_s=2, nb_steps=4)
 LIP_TOL = 0.25  # power iteration's estimate of sigma lies below it (chip_smoke.py LIP_TOL)

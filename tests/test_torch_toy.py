@@ -63,7 +63,8 @@ def test_conditional_made_matches_jax():
     nin, cond_in, hidden, nout = 3, 5, (12, 10), 2 * (3 + 5)
     jmade = JaxCMADE(nin, cond_in, hidden, nout)
     params = jax.tree_util.tree_map(np.asarray, jmade.init(jax.random.PRNGKey(4)))
-    made = ConditionalMADE(nin, cond_in, hidden, nout, torch.Generator().manual_seed(0))
+    made = ConditionalMADE(nin, cond_in, hidden, nout, torch.Generator().manual_seed(0),
+                           device="cpu")
     for m_t, m_j in zip(made.masks, jmade._made.masks):
         np.testing.assert_array_equal(m_t.numpy().T, np.asarray(m_j))
     with torch.no_grad():

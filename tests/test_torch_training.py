@@ -165,7 +165,7 @@ def test_plateau_schedule_matches_jax():
 
 TINY = (
     "-device cpu -nb_flow 2 -hidden_embedding 16 -hidden_derivative 8 8 -embedding_s 2 "
-    "-ar1_rows 200 -steps_per_epoch 3 -nb_epoch 2 -nb_steps 4"
+    "-synthetic -synthetic_mode ar1 -ar1_rows 200 -steps_per_epoch 3 -nb_epoch 2 -nb_steps 4"
 )
 
 

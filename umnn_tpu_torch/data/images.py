@@ -1,22 +1,59 @@
-"""Synthetic MNIST-geometry rows with an exact bits-per-pixel floor, and
-the way back from logit space to pixels.
+"""MNIST for the 784-d flow: the raw idx files, the logit-dequantized
+splits, their uniform stand-in, the AR(1) rows with an exact bits-per-pixel
+floor, and the way back from logit space to pixels.
 
-Copies of `umnn_tpu/data/images.py::synthetic_mnist_ar1` (`:122-189`,
-numpy and scipy only): logit-space 784-d rows from a raster-order AR(1)
-Gaussian copula, made from a seed with no download; and of ``logit_back``
-(`:42-45`).
+Copies of `umnn_tpu/data/images.py` (numpy and scipy only):
+``add_uniform_noise_and_logit`` (`:35-40`), ``logit_back`` (`:42-45`),
+``_read_idx`` and ``load_mnist_raw`` (`:51-78`), ``load_mnist_flow``
+(`:93-119`), with its seeded uniform stand-in where the files are absent,
+and ``synthetic_mnist_ar1`` (`:122-189`): logit-space 784-d rows from a
+raster-order AR(1) Gaussian copula, made from a seed with no download.
+The files are read from ``<root>/mnist``, ``root`` being
+``$UMNN_DATA_ROOT`` or ``datasets/data``; :mod:`umnn_tpu_torch.data.download`
+writes them there. The same seed gives the same arrays, bit for bit, as the
+JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
+import os
+import struct
+from pathlib import Path
 
 import numpy as np
 import torch
 
-__all__ = ["ALPHA", "FlowImageData", "logit_back", "synthetic_mnist_ar1"]
+__all__ = [
+    "ALPHA",
+    "DEFAULT_ROOT",
+    "FlowImageData",
+    "add_uniform_noise_and_logit",
+    "load_mnist_flow",
+    "load_mnist_raw",
+    "logit_back",
+    "synthetic_mnist_ar1",
+]
+
+DEFAULT_ROOT = Path(os.environ.get("UMNN_DATA_ROOT", "datasets/data"))
 
 ALPHA = 1e-6  # logit-transform guard
+
+MNIST_FILES = (
+    "train-images-idx3-ubyte",
+    "train-labels-idx1-ubyte",
+    "t10k-images-idx3-ubyte",
+    "t10k-labels-idx1-ubyte",
+)
+
+
+def add_uniform_noise_and_logit(x_uint8: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """uint8 pixels to dequantized logit space: ``logit(ALPHA + (1 - 2
+    ALPHA) (x + u) / 256)``, ``u ~ U(0, 1)`` from ``rng``; float32 out."""
+    x = (x_uint8.astype(np.float64) + rng.rand(*x_uint8.shape)) / 256.0
+    x = ALPHA + (1 - 2 * ALPHA) * x
+    return np.log(x / (1.0 - x)).astype(np.float32)
 
 
 def logit_back(x) -> np.ndarray:
@@ -29,9 +66,37 @@ def logit_back(x) -> np.ndarray:
     return ((s - ALPHA) / (1 - 2 * ALPHA)).astype(np.float32)
 
 
+def _read_idx(path: Path) -> np.ndarray:
+    """An idx file (raw, or gzipped where its name ends in ``.gz``) as a
+    uint8 array of the shape its header gives."""
+    opener = gzip.open if path.suffix == ".gz" else open
+    with opener(path, "rb") as f:
+        (magic,) = struct.unpack(">I", f.read(4))
+        ndim = magic & 0xFF
+        shape = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+def load_mnist_raw(root: str | Path = DEFAULT_ROOT) -> tuple:
+    """``(train_images [60000, 28, 28], train_labels, test_images,
+    test_labels)``, uint8, from ``<root>/mnist`` (each file raw or
+    ``.gz``); ``FileNotFoundError`` for the first file missing."""
+    d = Path(root) / "mnist"
+    out = []
+    for name in MNIST_FILES:
+        p = d / name
+        if not p.exists():
+            p = d / (name + ".gz")
+        if not p.exists():
+            raise FileNotFoundError(p)
+        out.append(_read_idx(p))
+    return tuple(out)
+
+
 @dataclasses.dataclass
 class FlowImageData:
-    """Logit-dequantized splits for the 784-d flow (labels all zero here)."""
+    """Logit-dequantized splits for the 784-d flow, with their class labels
+    (all zero for the AR(1) rows)."""
 
     trn_x: np.ndarray
     trn_y: np.ndarray
@@ -39,6 +104,38 @@ class FlowImageData:
     val_y: np.ndarray
     tst_x: np.ndarray
     tst_y: np.ndarray
+
+
+def load_mnist_flow(
+    root: str | Path = DEFAULT_ROOT, seed: int = 0, synthetic: bool | None = None
+) -> FlowImageData:
+    """MNIST for density estimation: logit-dequantized, flattened to 784,
+    the train files split 5/6 to train (at most 50,000) and the rest to
+    valid (`lib/dataloader.py:100-118`).
+
+    ``synthetic``: ``None`` reads the files and takes the stand-in where
+    they are absent, ``True`` always takes it, ``False`` raises
+    ``FileNotFoundError`` where they are absent. The stand-in: 1,200 train
+    and 200 test images of uniform uint8 pixels and uniform labels, from
+    ``RandomState(seed)``, which then draws the dequantization noise.
+    """
+    rng = np.random.RandomState(seed)
+    try:
+        if synthetic is True:
+            raise FileNotFoundError
+        tr_x, tr_y, te_x, te_y = load_mnist_raw(root)
+    except FileNotFoundError:
+        if synthetic is False:
+            raise
+        tr_x = rng.randint(0, 256, (1200, 28, 28)).astype(np.uint8)
+        tr_y = rng.randint(0, 10, 1200)
+        te_x = rng.randint(0, 256, (200, 28, 28)).astype(np.uint8)
+        te_y = rng.randint(0, 10, 200)
+    n_train = min(50000, int(len(tr_x) * 5 / 6))
+    trn = add_uniform_noise_and_logit(tr_x[:n_train].reshape(-1, 784), rng)
+    val = add_uniform_noise_and_logit(tr_x[n_train:].reshape(-1, 784), rng)
+    tst = add_uniform_noise_and_logit(te_x.reshape(-1, 784), rng)
+    return FlowImageData(trn, tr_y[:n_train], val, tr_y[n_train:], tst, te_y)
 
 
 def synthetic_mnist_ar1(

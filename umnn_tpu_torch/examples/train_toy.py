@@ -14,7 +14,10 @@ draws start again from the seed, as JAX's do). ``-sample N`` draws N points
 at the end by the reference's bisection inversion from a generator seeded
 ``seed + 1`` (for conditionnal8gaussians the context cycles through the 8
 components), prints their mean and std, and with ``-folder`` writes them to
-``<folder>/samples_<data>.npy``.
+``<folder>/samples_<data>.npy`` and plots them beside the flow's density
+(for conditionnal8gaussians, given component 0) to
+``<folder>/density_<data>.png`` where matplotlib is installed (else a
+"density plot skipped" line; either line comes before the "sampled" line).
 
 At the default widths ([100]*4, e=10) the integral runs on the
 unpacked kernel pair on the card; with every integrand layer at most 32 wide
@@ -22,8 +25,7 @@ unpacked kernel pair on the card; with every integrand layer at most 32 wide
 (``csrc/integrand_fwd_p4.cu``, ``csrc/integrand_bwd_p4.cu``), as JAX's auto
 picks it; the bisection's candidates run on the same pair's forward.
 
-Not ported yet: the density plot of the samples (``utils/visualize.py``);
-not ported, by decision: the data mesh and its shardings (one card needs
+Not ported, by decision: the data mesh and its shardings (one card needs
 none) and ``retry_transient`` (a workaround for failures of the TPU's
 compile service).
 
@@ -72,6 +74,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("-ckpt_every", type=int, default=100, help="checkpoint cadence in epochs")
     p.add_argument("-device", default=None, help="default: the CUDA card")
     return p.parse_args(argv)
+
+
+def plot_density(model, samples, path: Path, conditional: bool, device) -> None:
+    """The samples beside the flow's density on a grid, as JAX's driver
+    plots them (`examples/train_toy.py:159-175`)."""
+    def log_prob(pts):
+        ctx = torch.eye(COND_IN, device=device)[torch.zeros(
+            pts.shape[0], dtype=torch.long, device=device)] if conditional else None
+        return model.compute_ll(pts, ctx)[0]
+
+    try:
+        from umnn_tpu_torch.utils.visualize import visualize_transform
+
+        visualize_transform(samples, log_prob, path, device=device)
+    except ImportError as e:  # no matplotlib
+        print(f"density plot skipped: {e}", flush=True)
+        return
+    print(f"saved density plot to {path}", flush=True)
 
 
 def main(argv=None) -> dict:
@@ -145,15 +165,18 @@ def main(argv=None) -> dict:
             # one sample per mixture component, cycling
             ctx = torch.eye(COND_IN, device=device)[torch.arange(args.sample, device=device) % COND_IN]
         samples = model.sample(args.sample, gen_z, context=ctx).cpu().numpy()
-        print(
-            f"sampled {args.sample} points in {time.time()-t0:.1f}s  "
-            f"mean={samples.mean(0)}  std={samples.std(0)}",
-            flush=True,
-        )
+        seconds = time.time() - t0
         if args.folder:
             out = Path(args.folder)
             out.mkdir(parents=True, exist_ok=True)
             np.save(out / f"samples_{args.data}.npy", samples)
+            plot_density(model, samples, out / f"density_{args.data}.png", conditional, device)
+        # JAX's line; it comes after the plot's line here (JAX prints it first)
+        print(
+            f"sampled {args.sample} points in {seconds:.1f}s  "
+            f"mean={samples.mean(0)}  std={samples.std(0)}",
+            flush=True,
+        )
         history["samples"] = samples
     return history
 

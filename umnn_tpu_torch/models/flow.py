@@ -31,7 +31,8 @@ class UMNNMAFFlow(nn.Module):
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed``. The
     flow lives on ``device``: CUDA unless the caller names another, and with
-    no CUDA device and no ``device`` the constructor raises.
+    no CUDA device and no ``device`` the constructor raises. ``solver``:
+    ``"CCParallel"`` or the node-sequential ``"CC"`` (:class:`UMNNMAF`).
     """
 
     def __init__(
@@ -47,6 +48,7 @@ class UMNNMAFFlow(nn.Module):
         seed: int = 0,
         device: torch.device | str | None = None,
         cond_in: int = 0,
+        solver: str = "CCParallel",
     ):
         super().__init__()
         device = resolve_device(device)
@@ -55,7 +57,7 @@ class UMNNMAFFlow(nn.Module):
         self.blocks = nn.ModuleList(
             UMNNMAF(
                 nb_in, gen, embedding_s, hidden_embedding, hidden_derivative,
-                nb_steps, act_func, backend, device, cond_in,
+                nb_steps, act_func, backend, device, cond_in, solver=solver,
             )
             for _ in range(nb_flow)
         )

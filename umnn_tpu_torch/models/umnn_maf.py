@@ -17,7 +17,9 @@ launches the CUDA kernels on the card (the pair that ``pack2`` and ``pack4``
 pick, ``None`` as JAX's auto) and their plain version on the CPU;
 ``"torch"`` (counterpart of ``"xla"``) is the plain node-megabatch
 quadrature with the Leibniz-rule backward; ``"auto"`` takes the kernel on
-CUDA and the plain path on CPU. Gradients reach every parameter on both
+CUDA and the plain path on CPU. ``solver="CC"`` (the reference's
+node-sequential solver, `:318-332`) integrates one node at a time on any
+backend, with no kernel. Gradients reach every parameter on both
 routes; the scaling is a buffer and gets none, as JAX's ``stop_gradient``
 makes it (`:235-237,267,363`).
 On the kernel route, under ``"auto"`` on the card too, an integrand whose
@@ -47,16 +49,23 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from umnn_tpu_torch.nn.core import MLP
+from umnn_tpu_torch.nn.core import MLP, resolve_device
 from umnn_tpu_torch.nn.made import MADE, ConditionalMADE
 from umnn_tpu_torch.ops.integrand_kernel import fused_cc_integral
-from umnn_tpu_torch.ops.quadrature import cc_tensors, integrate, neural_integral
+from umnn_tpu_torch.ops.quadrature import (
+    cc_tensors,
+    integrate,
+    integrate_sequential,
+    neural_integral,
+)
 
 __all__ = [
-    "BACKENDS", "EmbeddingNetwork", "IntegrandNetwork", "UMNNMAF", "power_iteration_sigma",
+    "BACKENDS", "EmbeddingNetwork", "IntegrandNetwork", "SOLVERS", "UMNNMAF",
+    "power_iteration_sigma",
 ]
 
 BACKENDS = ("auto", "kernel", "torch")
+SOLVERS = ("CCParallel", "CC")
 
 
 def power_iteration_sigma(
@@ -98,7 +107,7 @@ class IntegrandNetwork(nn.Module):
         gen: torch.Generator,
         nout: int = 1,
         act_func: str = "ELU",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         super().__init__()
         self.nnets = nnets
@@ -152,7 +161,8 @@ class IntegrandNetwork(nn.Module):
 
 class EmbeddingNetwork(nn.Module):
     """A MADE embedder (a ConditionalMADE where ``cond_in > 0``) paired with
-    the integrand networks."""
+    the integrand networks, on ``device`` (the card unless the caller names
+    another)."""
 
     def __init__(
         self,
@@ -162,10 +172,11 @@ class EmbeddingNetwork(nn.Module):
         out_made: int,
         gen: torch.Generator,
         act_func: str = "ELU",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         cond_in: int = 0,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.cond_in = cond_in
         if cond_in > 0:
             self.made = ConditionalMADE(
@@ -191,6 +202,13 @@ class UMNNMAF(nn.Module):
     ``pack2`` and ``pack4`` (JAX's ``pallas_pack2`` and ``pallas_pack4``)
     go to :func:`fused_cc_integral` on the kernel route: ``None`` picks the
     kernel pair as JAX's auto does; a bool forces a pair on or off.
+
+    ``solver``: ``"CCParallel"`` integrates every node in one call (the
+    kernel route, or the Leibniz megabatch under ``"torch"``); ``"CC"``
+    integrates node by node through :func:`integrate_sequential` on every
+    backend, and never takes the kernel, as JAX's ``use_pallas`` requires
+    ``"CCParallel"`` (`umnn_tpu/models/umnn_maf.py:283`). The block lives on
+    ``device``, the card unless the caller names another.
     """
 
     def __init__(
@@ -203,15 +221,20 @@ class UMNNMAF(nn.Module):
         nb_steps: int = 50,
         act_func: str = "ELU",
         backend: str = "auto",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         cond_in: int = 0,
         pack2: bool | None = None,
         pack4: bool | None = None,
+        solver: str = "CCParallel",
     ):
         super().__init__()
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+        if solver not in SOLVERS:
+            raise ValueError(f"solver {solver!r} is not one of {SOLVERS}")
+        device = resolve_device(device)
         self.input_size = input_size
+        self.solver = solver
         self.nb_steps = nb_steps
         self.act_func = act_func
         self.backend = backend
@@ -229,8 +252,11 @@ class UMNNMAF(nn.Module):
 
     def _use_kernel(self, x: torch.Tensor) -> bool:
         """Whether the integral goes to the kernel; it never falls back to
-        the plain path: an integrand the kernel cannot take raises there."""
-        use = self.backend == "kernel" or (self.backend == "auto" and x.is_cuda)
+        the plain path: an integrand the kernel cannot take raises there.
+        The sequential solver never takes it."""
+        use = self.solver == "CCParallel" and (
+            self.backend == "kernel" or (self.backend == "auto" and x.is_cuda)
+        )
         if use and self.act_func != "ELU":
             raise ValueError(
                 f"the integrand kernel computes ELU+1 outputs; act_func="
@@ -268,6 +294,8 @@ class UMNNMAF(nn.Module):
         integrand = self.net.integrand
         if self._use_kernel(x):
             z = self._integral(x, integrand.fold_embedding(h), nodes, weights)
+        elif self.solver == "CC":
+            z = integrate_sequential(integrand, torch.zeros_like(x), x, h, nodes, weights)
         else:
             z = neural_integral(
                 integrand, torch.zeros_like(x), x, h, nodes=nodes, weights=weights

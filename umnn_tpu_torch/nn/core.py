@@ -40,13 +40,15 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 
 def torch_linear_init(
-    gen: torch.Generator, din: int, dout: int, device: torch.device | str = "cpu"
+    gen: torch.Generator, din: int, dout: int, device: torch.device | str | None = None
 ) -> nn.Linear:
     """``nn.Linear(din, dout)`` with its default init drawn from ``gen``.
 
     W and b ~ U(-1/sqrt(din), 1/sqrt(din)), as torch's kaiming-uniform with
-    a=sqrt(5). ``gen`` lives on the CPU; the layer is moved to ``device``.
+    a=sqrt(5). ``gen`` lives on the CPU; the layer is moved to ``device``
+    (:func:`resolve_device`: the card unless the caller names another).
     """
+    device = resolve_device(device)
     layer = nn.Linear(din, dout, device="meta")
     bound = 1.0 / math.sqrt(din) if din > 0 else 0.0
     w = torch.empty(dout, din).uniform_(-bound, bound, generator=gen)
@@ -75,7 +77,8 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 class MLP(nn.Module):
     """Layer widths ``sizes = [din, h1, ..., dout]``; ``hidden_act`` between
-    layers, ``out_act`` after the last."""
+    layers, ``out_act`` after the last. On ``device``, the card unless the
+    caller names another."""
 
     def __init__(
         self,
@@ -83,9 +86,10 @@ class MLP(nn.Module):
         gen: torch.Generator,
         hidden_act: str = "LeakyReLU",
         out_act: str = "Identity",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.layers = nn.ModuleList(
             torch_linear_init(gen, d0, d1, device) for d0, d1 in zip(sizes[:-1], sizes[1:])
         )

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from umnn_tpu_torch.nn.core import torch_linear_init
+from umnn_tpu_torch.nn.core import resolve_device, torch_linear_init
 
 __all__ = ["build_made_masks", "ConditionalMADE", "MADE"]
 
@@ -65,7 +65,8 @@ def build_made_masks(
 
 class MADE(nn.Module):
     """Masked MLP: output block ``j*nin + d`` depends only on ``x[..., :d]``
-    (natural ordering). ReLU between layers, no output activation."""
+    (natural ordering). ReLU between layers, no output activation. On
+    ``device``, the card unless the caller names another."""
 
     def __init__(
         self,
@@ -73,9 +74,10 @@ class MADE(nn.Module):
         hidden_sizes: Sequence[int],
         nout: int,
         gen: torch.Generator,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         super().__init__()
+        device = resolve_device(device)
         masks, order = build_made_masks(nin, hidden_sizes, nout)
         # i_map[d]: the input slot of degree d, the order of inversion (`:111`)
         self.i_map = [int(k) for k in np.argsort(order)]
@@ -147,7 +149,7 @@ class ConditionalMADE(MADE):
         hidden_sizes: Sequence[int],
         nout: int,
         gen: torch.Generator,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ):
         super().__init__(nin + cond_in, hidden_sizes, nout, gen, device)
         self.nin, self.cond_in = nin, cond_in

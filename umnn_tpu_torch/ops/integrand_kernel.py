@@ -206,7 +206,8 @@ def fused_cc_integral(
     pack4: bool | None = None,
 ) -> torch.Tensor:
     """``∫_0^x f(t, h) dt`` for the UMNN integrand MLP; ``x [...]``,
-    ``h [..., e]``, ``nodes``/``ccw`` the K CC nodes and weights.
+    ``h [..., e]`` with ``e >= 1``, ``nodes``/``ccw`` the K CC nodes and
+    weights.
 
     CPU tensors run the plain version; CUDA tensors launch the kernels of
     the pair ``pack4`` and ``pack2`` pick (``None``: as JAX's auto).
@@ -257,6 +258,12 @@ def _on_card(name: str, ws, bs, tensors) -> bool:
         )
     if len(bs) != len(ws):
         raise ValueError(f"{len(ws)} weights but {len(bs)} biases")
+    if ws[0].shape[-1] < 2:
+        # h with no column: no kernel was built or checked for it
+        raise ValueError(
+            f"{name}: the first layer takes [x, h] with at least one column of h; "
+            f"got weight {tuple(ws[0].shape)}"
+        )
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")

@@ -2,9 +2,12 @@
 
 PyTorch counterpart of `umnn_tpu/ops/quadrature.py`: the node/weight rule
 (`:62-127`), the plain node-megabatch quadrature of the reference's
-"CCParallel" solver (`integrate`, `:154-175`) and :func:`neural_integral`
-with the memory-efficient Leibniz-rule backward (`:251-331`), which saves
-only its inputs and recomputes the node megabatch in the backward.
+"CCParallel" solver (`integrate`, `:154-175`), the node-sequential
+quadrature of its "CC" solver (`integrate_sequential`, `:183-215`), the
+gradient oracle `integrate_autodiff` (`:218-248`) and
+:func:`neural_integral` with the memory-efficient Leibniz-rule backward
+(`:251-331`), which saves only its inputs and recomputes the node megabatch
+in the backward.
 
 With nodes ``t_i = cos(i*pi/N)`` (from +1 down to -1) and CC weights ``w_i``:
 
@@ -22,6 +25,8 @@ __all__ = [
     "cc_quadrature",
     "cc_tensors",
     "integrate",
+    "integrate_autodiff",
+    "integrate_sequential",
     "neural_integral",
     "padded_cc_quadrature",
 ]
@@ -122,6 +127,48 @@ def integrate(
     """
     f = _eval_nodes(integrand, _node_positions(x0, xT, nodes), h, inv_f)
     return torch.einsum("...kd,k->...d", f, weights) * (xT - x0) * 0.5
+
+
+def integrate_sequential(
+    integrand: Integrand,
+    x0: torch.Tensor,
+    xT: torch.Tensor,
+    h: torch.Tensor,
+    nodes: torch.Tensor,
+    weights: torch.Tensor,
+    inv_f: bool = False,
+) -> torch.Tensor:
+    """Node-sequential Clenshaw-Curtis quadrature (the reference's ``"CC"``
+    solver, `NeuralIntegral.py:37-66`).
+
+    One integrand call per node on ``[..., D]`` rows, ``w_i f_i`` summed in
+    node order: without a graph (under ``torch.no_grad`` or
+    ``torch.inference_mode``) the activations of one node at a time are
+    alive, O(batch) memory against :func:`integrate`'s O(batch x K), at K
+    calls in place of one. With a graph, autograd keeps every node's.
+    """
+    half = (xT - x0) * 0.5
+    acc = torch.zeros(torch.broadcast_shapes(x0.shape, xT.shape), dtype=xT.dtype,
+                      device=xT.device)
+    for t, w in zip(nodes, weights):
+        f = integrand(x0 + half * (t + 1.0), h)
+        acc = acc + w * (1.0 / f if inv_f else f)
+    return acc * half
+
+
+def integrate_autodiff(
+    integrand: Integrand,
+    x0: torch.Tensor,
+    xT: torch.Tensor,
+    h: torch.Tensor,
+    nb_steps: int,
+    inv_f: bool = False,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """:func:`integrate` at ``nb_steps``, differentiated by autograd through
+    the node sum: the gradient oracle of the tests."""
+    nodes, weights = cc_tensors(nb_steps, xT.device, dtype)
+    return integrate(integrand, x0, xT, h, nodes, weights, inv_f)
 
 
 class _NeuralIntegral(torch.autograd.Function):

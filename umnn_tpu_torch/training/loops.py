@@ -2,10 +2,10 @@
 
 PyTorch counterpart of `umnn_tpu/training/loops.py`: ``make_optimizer``
 (`:83-108`), the train step with its non-finite guard (`:111-191`),
-``finite_mean`` (`:194-207`), ``ReduceLROnPlateau`` (`:270-307`) and
-``batch_iter`` (`:310-332`); the step's ``post_update`` (`:128`,
-`:174-175`) carries the Lipschitz projection. Not ported yet: the
-gradient-accumulation step and ``make_eval_step``; not ported, by
+``finite_mean`` (`:194-207`), the gradient-accumulation step
+(`:209-256`), the evaluation step (`:259-266`), ``ReduceLROnPlateau``
+(`:270-307`) and ``batch_iter`` (`:310-332`); the step's ``post_update``
+(`:128`, `:174-175`) carries the Lipschitz projection. Not ported, by
 decision: the retry of transient compile failures (a TPU workaround) and
 the mesh shardings (one card).
 """
@@ -23,6 +23,8 @@ __all__ = [
     "ReduceLROnPlateau",
     "batch_iter",
     "finite_mean",
+    "make_accum_train_step",
+    "make_eval_step",
     "make_optimizer",
     "make_train_step",
 ]
@@ -133,6 +135,55 @@ def make_train_step(
         if post_update is not None:
             post_update(*extras)
         return loss.detach()
+
+    return step
+
+
+def make_accum_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer: Optimizer,
+    accum_steps: int,
+) -> Callable[..., torch.Tensor]:
+    """``step(*batch) -> loss``: each tensor of ``batch`` split on its
+    leading axis into ``accum_steps`` equal microbatches, one backward of
+    ``loss_fn(*microbatch)`` each, the summed gradients divided by
+    ``accum_steps``, then one :meth:`Optimizer.step` (clip, L2 decay, Adam).
+
+    The reference's ``max_forward`` sub-batching
+    (`MNISTExperiment.py:46,160-165`): the activations of one microbatch
+    at a time, the same mean-of-means loss, which it returns. As JAX's, it
+    has no non-finite guard. A batch whose leading axis ``accum_steps``
+    does not divide raises ``ValueError``.
+    """
+
+    def step(*batch) -> torch.Tensor:
+        n = batch[0].shape[0]
+        if n % accum_steps or any(b.shape[0] != n for b in batch):
+            raise ValueError(
+                f"a batch of {[b.shape[0] for b in batch]} rows does not split into "
+                f"{accum_steps} equal microbatches"
+            )
+        optimizer.zero_grad()
+        losses = []
+        for micro in zip(*(b.chunk(accum_steps) for b in batch)):
+            loss = loss_fn(*micro)
+            loss.backward()  # gradients add up in .grad
+            losses.append(loss.detach())
+        for p in optimizer.params:
+            if p.grad is not None:
+                p.grad.div_(accum_steps)
+        optimizer.step()
+        return torch.stack(losses).mean()
+
+    return step
+
+
+def make_eval_step(loss_fn: Callable[..., torch.Tensor]) -> Callable[..., torch.Tensor]:
+    """``loss_fn`` under ``torch.inference_mode()``: no graph, no gradient."""
+
+    def step(*args) -> torch.Tensor:
+        with torch.inference_mode():
+            return loss_fn(*args)
 
     return step
 

@@ -1,11 +1,11 @@
 """Console and file logger, and a JSONL stream of scalar metrics.
 
-PyTorch-side counterpart of `umnn_tpu/utils/logging.py:20-70` (which takes
+PyTorch-side counterpart of `umnn_tpu/utils/logging.py:20-84` (which takes
 no JAX): ``get_logger`` logs to the console and to a file;
 ``MetricsWriter`` appends one ``{"step", "tag", "value", "ts"}`` record per
-scalar. Not ported: ``AverageMeter``, and ``get_logger``'s options to
-switch either handler off or to copy the calling script's source into the
-log, which no driver of the port uses.
+scalar; ``AverageMeter`` keeps a running mean. Not ported:
+``get_logger``'s options to switch either handler off or to copy the
+calling script's source into the log, which no driver of the port uses.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import sys
 import time
 from pathlib import Path
 
-__all__ = ["MetricsWriter", "get_logger"]
+__all__ = ["AverageMeter", "MetricsWriter", "get_logger"]
 
 
 def get_logger(name: str, logpath: str | Path) -> logging.Logger:
@@ -48,3 +48,19 @@ class MetricsWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+class AverageMeter:
+    """Running mean of a stream of scalars, each weighted by ``n``."""
+
+    def __init__(self):
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, value: float, n: int = 1) -> None:
+        self.sum += value * n
+        self.count += n
+
+    @property
+    def avg(self) -> float:
+        return self.sum / max(self.count, 1)
