@@ -142,7 +142,26 @@ scipy. Phases, each printing one flushed JSON line:
            memory at the MNIST flow below the node megabatch's; the
            accumulation step with 4 microbatches against one backward of
            the batch, 20 + 20 launches, with both peaks;
-17. sample inversion and sampling: at the UCI parity configuration (the
+17. vae    the VAE stack (examples/train_vae.py) at the driver's defaults:
+           MMAVAE with z 64, 4 flows, the 320-wide context, MADE [512, 512],
+           integrand 31-100-50-50-50-1, batch 100 of the binary stand-in
+           (R = 6,400): the kernel route against backend="torch" on the
+           same weights and noise (x_mean, ldj, loss, every gradient) at
+           K = 51 and at 101 padded nodes, and at the pack-2 widths
+           31-50-50-50-50-1; 4 + 4 launches of one pair a training step and
+           4 forwards an evaluation batch, h of 30 columns; the pairs at
+           these blocks and the unpacked forward at an IWAE call's R =
+           256,000, K = 101 against their plain versions, device times
+           beside bounds; vae_train_step_ms with the device's idle share;
+           one step of the planar, orthogonal, Householder, triangular and
+           IAF families with each flow's log-det against float64 autodiff;
+           the driver (-flow MMAF -synthetic, 2 epochs, 8 IWAE points of
+           1,000 samples), whose IWAE NLL may not lie 2 nats below the
+           stand-in's optimum 784 ln 2, on Freyfaces (bpd not below 7.95)
+           and -eval_only, each run switching TF32 off itself; the
+           data-parallel step under an NCCL group of one against the plain
+           step;
+18. sample inversion and sampling: at the UCI parity configuration (the
            calibration flow, batch 500, D = 6, 5 blocks; the pack-2 forward)
            the reference's bisection (10 rounds of 10 candidates) and
            Jacobi-Newton (30 iterations), at the MNIST configuration at full
@@ -187,7 +206,7 @@ import numpy as np
 import torch
 
 from umnn_tpu_torch import UMNNMAFFlow
-from umnn_tpu_torch.data.images import load_mnist_flow, synthetic_mnist_ar1
+from umnn_tpu_torch.data.images import load_mnist_flow, load_vae_dataset, synthetic_mnist_ar1
 from umnn_tpu_torch.data.toy import inf_train_gen
 from umnn_tpu_torch.data import uci
 from umnn_tpu_torch.examples import (
@@ -196,12 +215,17 @@ from umnn_tpu_torch.examples import (
     train_monotonic,
     train_toy,
     train_uci,
+    train_vae,
 )
+from umnn_tpu_torch.models import umnn_maf
 from umnn_tpu_torch.models.monotonic import MonotonicNN
+from umnn_tpu_torch.models.vae import MMAVAE, VAE_FAMILIES, calculate_loss
+from umnn_tpu_torch.models.vae import layers as vae_layers
 from umnn_tpu_torch.nn.core import torch_linear_init
 from umnn_tpu_torch.ops import _build, wide_split
 from umnn_tpu_torch.ops import integrand_kernel as ik
 from umnn_tpu_torch.ops.quadrature import cc_tensors, padded_cc_quadrature
+from umnn_tpu_torch.parallel import multihost
 from umnn_tpu_torch.training.checkpoint import CheckpointManager
 from umnn_tpu_torch.training.loops import make_accum_train_step, make_optimizer, make_train_step
 
@@ -319,6 +343,37 @@ COND_ARGV = ("-conditionnal -synthetic -nb_epoch 1 -steps_per_epoch 3 -gen 10 -d
 ACCUM_STEPS = 4  # make_accum_train_step's microbatches at the MNIST batch
 NONE_LAUNCHED = {k: 0 for k in ik.LAUNCHES}
 UNPACKED = {"pack2": False, "pack4": False}  # the unpacked pair at any width
+# The VAE stack of examples/train_vae.py at the driver's defaults: MMAVAE
+# with z 64, 4 flows, the encoder's 320-wide context, MADE [512, 512],
+# embedding 30 and the integrand 31-100-50-50-50-1 (the unpacked pair),
+# batch 100 of the binary stand-in: R = 6,400 integrand rows a block. The
+# class default integrand (50, 50, 50, 50) takes the pack-2 pair. An IWAE
+# call at the driver's -iwae_minibatch 500 evaluates 8 datapoints x 500
+# particles: R = 256,000 rows at K = 101. The stand-ins' optima: fair
+# independent bits cost 784 ln 2 nats a row, uniform 256-level subpixels
+# 8 bits a dimension; no model scores better in expectation.
+VAE_KW = dict(z_size=64, num_flows=4, made_h_size=320, hidden_embedding=(512, 512),
+              embedding_size=30)
+VAE_HIDDEN = (100, 50, 50, 50)  # -hidden_derivative's default
+VAE_P2_HIDDEN = (50, 50, 50, 50)  # MMAVAE's class default
+VAE_BATCH = 100
+VAE_WIDTHS = [1 + VAE_KW["embedding_size"], *VAE_HIDDEN, 1]
+VAE_P2_WIDTHS = [1 + VAE_KW["embedding_size"], *VAE_P2_HIDDEN, 1]
+VAE_ROWS = VAE_BATCH * VAE_KW["z_size"]
+IWAE_ROWS = 8 * 500 * VAE_KW["z_size"]
+VAE_RANDOM_STEPS = 60  # one draw of -steps 0's 2 * U{10, 49}, padded to 100
+VAE_FAMILY_KW = {"planar": {}, "orthogonal": {"num_ortho_vecs": 32},
+                 "householder": {"num_householder": 8}, "triangular": {},
+                 "iaf": {"made_h_size": 320}}
+LOGDET_TOL = dict(rtol=1e-6, atol=1e-6)  # float64 autodiff against the flow's own log-det
+BITS_NATS = 784 * np.log(2.0)  # the binary stand-in's optimum, nats a row
+VAE_NLL_SLACK = 2.0
+FREY_BPD_SLACK = 0.05
+VAE_IWAE_ARGV = "-iwae_samples 1000 -iwae_minibatch 500 -iwae_test_points 8".split()
+VAE_DRIVER_ARGV = ["-flow", "MMAF", "-synthetic", "-nb_epoch", "2", *VAE_IWAE_ARGV]
+FREY_DRIVER_ARGV = ["-dataset", "freyfaces", "-flow", "MMAF", "-synthetic", "-nb_epoch", "1",
+                    *VAE_IWAE_ARGV]
+
 
 # Forward kernel against its plain version, both float32 with IEEE FMA on
 # the card: they differ only in the order of sums (the kernel's
@@ -2741,6 +2796,328 @@ def time_pack4(cases, g_all, flow, step_k, step_p, x_toy, name: str) -> tuple:
     return out, steps, profile
 
 
+def free_port() -> int:
+    """A free TCP port on localhost."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def vae_batch(dev, n: int = VAE_BATCH) -> torch.Tensor:
+    data = load_vae_dataset("mnist", synthetic=True)
+    return torch.as_tensor(data.trn[:n], device=dev).reshape(-1, 1, 28, 28)
+
+
+def vae_loss(model, x, gen, **quad):
+    out = model(x, gen, **quad)
+    loss = calculate_loss(out[0], x, out[1], out[2], out[4], out[5], out[3], model.input_type,
+                          model.input_size)[0]
+    return loss, out
+
+
+def vae_routes(hidden, dev, what: str, **quad) -> tuple:
+    """MMAVAE at ``hidden`` on the kernel route ("auto") against "torch"
+    (the same seeded weights, the same noise): x_mean, ldj and the loss
+    within SLICE_TOL, every gradient within TRAIN_GRAD_GAP. Returns the
+    errors and the kernel-route model."""
+    kw = dict(VAE_KW, hidden_derivative=hidden, seed=0)
+    model = MMAVAE(**kw, backend="auto")
+    plain = MMAVAE(**kw, backend="torch")
+    x = vae_batch(dev)
+    loss_k, out_k = vae_loss(model, x, torch.Generator(device=dev).manual_seed(5), **quad)
+    loss_k.backward()
+    loss_p, out_p = vae_loss(plain, x, torch.Generator(device=dev).manual_seed(5), **quad)
+    loss_p.backward()
+    torch.cuda.synchronize()
+    res = {"x_mean": compare(out_k[0].detach(), out_p[0].detach(), SLICE_TOL, f"{what} x_mean"),
+           "ldj": compare(out_k[3].detach(), out_p[3].detach(), SLICE_TOL, f"{what} ldj"),
+           "loss": compare(loss_k.detach(), loss_p.detach(), SLICE_TOL, f"{what} loss"),
+           **grad_gaps(model, plain, what)}
+    return res, model
+
+
+def tf32_flags() -> tuple:
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def set_tf32(on: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+
+
+@contextlib.contextmanager
+def tf32_seen():
+    """The TF32 flags at every gated convolution's forward and every
+    backward pass run inside the block, appended to the list it yields."""
+    seen, real = [], {}
+    for cls in (vae_layers.GatedConv2d, vae_layers.GatedConvTranspose2d, torch.Tensor):
+        name = "backward" if cls is torch.Tensor else "forward"
+        real[cls] = fn = getattr(cls, name)
+
+        def spy(self, *a, fn=fn, **k):
+            seen.append(tf32_flags())
+            return fn(self, *a, **k)
+
+        setattr(cls, name, spy)
+    try:
+        yield seen
+    finally:
+        for cls, fn in real.items():
+            setattr(cls, "backward" if cls is torch.Tensor else "forward", fn)
+
+
+def vae_tf32_unchanged(model, dev) -> dict:
+    """The kernel route's forward with the caller's TF32 flags switched on
+    after the model was built, against the same forward with them off: the
+    model runs in IEEE float32 by itself and gives back the flags as it
+    found them. TF32 would move x_mean by about 1e-3."""
+    x = vae_batch(dev)
+    outs = []
+    for on in (False, True):
+        set_tf32(on)
+        with torch.inference_mode(), tf32_seen() as seen:
+            loss, out = vae_loss(model, x, torch.Generator(device=dev).manual_seed(5))
+        check(tf32_flags() == (on, on), f"vae: the forward left the TF32 flags {tf32_flags()}")
+        check(len(seen) == 12 and not any(map(any, seen)),
+              f"vae: a gated convolution ran with the TF32 flags {seen}")
+        outs.append((out[0], out[3], loss))
+    set_tf32(False)  # main's setting
+    diff = {k: float((a - b).abs().max()) for k, a, b in zip(("x_mean", "ldj", "loss"), *outs)}
+    check(diff["x_mean"] <= 1e-6 and diff["ldj"] <= 1e-6 * float(outs[0][1].abs().max())
+          and diff["loss"] <= 1e-6 * float(outs[0][2].abs()),
+          f"vae: the forward under the caller's TF32 differs from IEEE float32 by {diff}")
+    return diff
+
+
+def vae_step(model, dev, **quad):
+    """The driver's training step: Adamax, no clip, has_aux."""
+    opt = make_optimizer(model.parameters(), "adamax", 5e-4, grad_clip=None)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def loss_fn(x):
+        loss, _ = vae_loss(model, x, gen, **quad)
+        return loss, ()
+
+    return make_train_step(loss_fn, opt, has_aux=True)
+
+
+def vae_flow_logdet(model, x, dev, what: str) -> dict:
+    """The posterior flow's log-det against log|det dz_k/dz_0| from float64
+    autodiff on 4 rows, on the model's own features."""
+    model = model.double()
+    x = x[:4].double()
+    with torch.no_grad():
+        h = model.encode_features(x)
+    z0 = torch.randn(4, model.z_size, dtype=torch.float64, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(9))
+    with torch.no_grad():
+        _, ldj = model.transform(h, z0)
+    want = torch.stack([
+        torch.linalg.slogdet(torch.autograd.functional.jacobian(
+            lambda v: model.transform(h[i : i + 1], v[None])[0][0], z0[i]))[1]
+        for i in range(4)])
+    model.float()
+    return compare(ldj, want, LOGDET_TOL, f"{what} log-det")
+
+
+def vae_kernel_blocks(dev, name) -> dict:
+    """The pairs at the VAE's blocks against their plain versions (forward
+    within KERNEL_TOL, backward by phase bwd's rule), with device times
+    beside bounds: the unpacked pair at R = 6,400, K = 51 and 101, the
+    pack-2 pair at the class default's widths, R = 6,400, K = 51, and the
+    unpacked forward at an IWAE call's R = 256,000, K = 101."""
+    gen = torch.Generator().manual_seed(19)
+    out = {}
+    cases = [("unpacked_K51", VAE_WIDTHS, VAE_ROWS, 50, False, True),
+             ("unpacked_K101", VAE_WIDTHS, VAE_ROWS, 100, False, True),
+             ("pack2_K51", VAE_P2_WIDTHS, VAE_ROWS, 50, True, True),
+             ("iwae_unpacked_K101", VAE_WIDTHS, IWAE_ROWS, 100, False, False)]
+    for label, widths, R, steps, pack2, with_bwd in cases:
+        ws, bs, h = integrand_inputs(gen, widths, R, dev)
+        x = (1.5 * torch.randn(R, generator=gen)).to(dev)
+        nodes, ccw = cc_tensors(steps, dev)
+        K = nodes.numel()
+        fk, bk = ("integrand_fwd_p2", "integrand_bwd_p2") if pack2 else ("integrand_fwd",
+                                                                         "integrand_bwd")
+        with torch.inference_mode():
+            fwd = lambda: ik.fused_cc_integral(ws, bs, x, h, nodes, ccw, pack2=pack2)  # noqa: E731
+            plain = lambda: ik.fused_cc_integral_plain(ws, bs, x, h, nodes, ccw)  # noqa: E731
+            err = compare(fwd(), plain(), KERNEL_TOL, f"vae {label} fwd")
+            b = bound(kernel_flops(widths, R, K), kernel_bytes(widths, R, K), name)
+            dms = device_ms(fwd, fk, n=10)
+            entry = {fk: {"rows": R, "nodes": K, "widths": widths, **err,
+                          "ms": median_ms(fwd, n=10), "device_ms_per_launch": dms,
+                          "plain_ms": median_ms(plain, n=3, warmup=1), "bound_ms": b["bound_ms"],
+                          "bound_by": b["bound_by"], "device_bound_share": b["bound_ms"] / dms}}
+        if with_bwd:
+            g = torch.randn(R, generator=gen).to(dev)
+            args = (ws, bs, x, h, nodes, ccw, g)
+            call = lambda: ik.fused_cc_integral_bwd(*args, pack2=pack2)  # noqa: E731
+            # the pack-2 backward against float64 on its own sides of each
+            # LeakyReLU, as phase bwd_p2 holds it
+            pos = kernel_branches(ws, bs, x, h, nodes, 0.01)[0] if pack2 else None
+            err = worst(compare_bwd(call(), ik.fused_cc_integral_bwd_plain(*args),
+                                    bwd_plain64(*args, 0.01, pos=pos), f"vae {label} bwd",
+                                    bwd_plain64(*args, 0.01) if pack2 else None))
+            del pos
+            b = bound(bwd_kernel_flops(widths, R, K), bwd_kernel_bytes(widths, R, K), name)
+            dms = device_ms(call, bk, n=10)
+            entry[bk] = {"rows": R, "nodes": K, "widths": widths, **err,
+                         "ms": median_ms(call, n=10), "device_ms_per_launch": dms,
+                         "plain_ms": median_ms(lambda: ik.fused_cc_integral_bwd_plain(*args),
+                                               n=3, warmup=1),
+                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                         "device_bound_share": b["bound_ms"] / dms}
+        out[label] = entry
+    return out
+
+
+def phase_vae(dev, name):
+    """The VAE slice on the card: MMAVAE's routes at the driver's widths at
+    K = 51 and 101 and at the pack-2 widths, with their launches a training
+    step and an evaluation batch; the h each launch sees; the pairs at the
+    VAE's blocks and an IWAE call's; the training step's time and idle
+    share; one step of each other flow family and its log-det against
+    float64 autodiff; the driver on the binary and Freyfaces stand-ins
+    against their optima, -eval_only; IEEE float32 in the model's forward
+    and the driver's whole run with the caller's TF32 flags on; the
+    data-parallel step under an NCCL group of one. Returns the blocks'
+    times and the launches of the phase's main-path runs."""
+    t0 = time.perf_counter()
+    counted = {k: 0 for k in ik.LAUNCHES}
+
+    def count(launches):
+        for k, v in launches.items():
+            counted[k] += v
+
+    routes, model = {}, None
+    routes["unpacked_K51"], model = vae_routes(VAE_HIDDEN, dev, "vae K51")
+    tf32 = {"forward_max_abs_diff": vae_tf32_unchanged(model, dev)}
+    pad_n, pad_w = padded_cc_quadrature(VAE_RANDOM_STEPS, 100, dev)
+    routes["unpacked_K101_padded"], _ = vae_routes(VAE_HIDDEN, dev, "vae K101",
+                                                   nodes=pad_n, weights=pad_w)
+    routes["pack2_K51"], model_p2 = vae_routes(VAE_P2_HIDDEN, dev, "vae pack-2 K51")
+    x = vae_batch(dev)
+
+    # launches: a training step at K = 51 and K = 101, an evaluation batch;
+    # the h the kernel sees
+    seen = []
+    real = umnn_maf.fused_cc_integral
+
+    def spy(ws, bs, xx, h, *a, **k):
+        seen.append(tuple(h.shape))
+        return real(ws, bs, xx, h, *a, **k)
+
+    launches = {}
+    for label, m, quad, fk, bk in (
+        ("step_K51", model, {}, "integrand_fwd", "integrand_bwd"),
+        ("step_K101", model, {"nodes": pad_n, "weights": pad_w}, "integrand_fwd", "integrand_bwd"),
+        ("pack2_step_K51", model_p2, {}, "integrand_fwd_p2", "integrand_bwd_p2"),
+    ):
+        step = vae_step(m, dev, **quad)
+        umnn_maf.fused_cc_integral = spy
+        try:
+            launches[label] = step_launches(step, x)
+        finally:
+            umnn_maf.fused_cc_integral = real
+        n = VAE_KW["num_flows"]
+        want = {**NONE_LAUNCHED, fk: n, bk: n}
+        check(launches[label] == want, f"vae {label}: launches {launches[label]}, want {want}")
+        count(launches[label])
+    # h [B, D, e]: R = B * D rows of e = 30 columns each
+    check(set(seen) == {(VAE_BATCH, VAE_KW["z_size"], VAE_KW["embedding_size"])},
+          f"vae: the kernel saw h of shapes {set(seen)}")
+    eval_n, eval_w = padded_cc_quadrature(100, 100, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.inference_mode():
+        launches["eval_batch"] = step_launches(
+            lambda xx: vae_loss(model, xx, gen, nodes=eval_n, weights=eval_w), x)
+    want = {**NONE_LAUNCHED, "integrand_fwd": VAE_KW["num_flows"]}
+    check(launches["eval_batch"] == want, f"vae eval: launches {launches['eval_batch']}")
+    count(launches["eval_batch"])
+    del model_p2
+
+    blocks = vae_kernel_blocks(dev, name)
+    step = vae_step(model, dev)
+    step_ms = median_ms(lambda: step(x), n=5, warmup=2)
+    profile = step_profile(step, x)
+    profile["device_idle_share"] = 1.0 - profile["device_busy_ms"] / step_ms
+    del model, step
+
+    families = {}
+    for fam, extra in VAE_FAMILY_KW.items():
+        m = VAE_FAMILIES[fam](z_size=VAE_KW["z_size"], num_flows=VAE_KW["num_flows"], seed=0,
+                              **extra)
+        fstep = vae_step(m, dev)
+        loss, _ = fstep(x)
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in m.parameters()
+                     if p.grad is not None)
+        check(bool(torch.isfinite(loss)) and finite, f"vae {fam}: loss {loss} or a gradient")
+        families[fam] = {"loss": float(loss), "step_ms": median_ms(lambda: fstep(x), n=3, warmup=1),
+                         "log_det": vae_flow_logdet(m, x, dev, f"vae {fam}")}
+        del m, fstep
+
+    # the driver, TF32 on before it: it runs in IEEE float32 by itself
+    folder = _build.BUILD_DIR.parent / "chip_smoke_vae"
+    shutil.rmtree(folder, ignore_errors=True)
+    drivers = {}
+    for label, argv in (("mnist", VAE_DRIVER_ARGV), ("freyfaces", FREY_DRIVER_ARGV),
+                        ("mnist_eval_only", VAE_DRIVER_ARGV + ["-eval_only"])):
+        set_tf32(True)
+        with tf32_seen() as calls:
+            rc, lines, launched, seconds = run_driver(train_vae.main,
+                                                      argv + ["-folder", str(folder)])
+        check(tf32_flags() == (True, True), f"vae driver {label}: TF32 flags {tf32_flags()}")
+        set_tf32(False)
+        check(calls and not any(map(any, calls)),
+              f"vae driver {label}: a convolution or backward pass ran in TF32")
+        tf32[f"driver_{label}_calls_seen"] = len(calls)
+        res = json.loads(lines[-1])
+        check(rc == 0 and all(np.isfinite(v) for k, v in res.items()
+                              if isinstance(v, float)), f"vae driver {label}: {rc} {lines[-3:]}")
+        drivers[label] = {"argv": " ".join(argv), "rc": rc, "result": res, "launches": launched,
+                          "seconds": seconds, "log": lines[-6:]}
+        count(launched)
+    nll = -drivers["mnist"]["result"]["test_iwae_ll"]
+    check(nll >= BITS_NATS - VAE_NLL_SLACK,
+          f"vae driver: test IWAE NLL {nll} below the stand-in's optimum {BITS_NATS}")
+    bpd = drivers["freyfaces"]["result"]["test_bpd_ll"]
+    check(bpd >= 8.0 - FREY_BPD_SLACK, f"vae driver freyfaces: test bpd {bpd} below 8")
+    check(drivers["mnist_eval_only"]["result"]["best_valid_elbo"] is None,
+          "vae driver -eval_only trained")
+    # launches of the binary run: 6 steps an epoch, one validation and one
+    # reconstruction batch an epoch, the test batch and 2 IWAE calls, each a
+    # forward of every block
+    n = VAE_KW["num_flows"]
+    want = {**NONE_LAUNCHED, "integrand_fwd": n * (12 + 2 * 2 + 1 + 2), "integrand_bwd": n * 12}
+    check(drivers["mnist"]["launches"] == want,
+          f"vae driver: launched {drivers['mnist']['launches']}, want {want}")
+    shutil.rmtree(folder, ignore_errors=True)
+
+    # the data-parallel step under an NCCL group of one, then without a group
+    port = free_port()
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                         world_size=1, rank=0)
+    try:
+        grouped = multihost.run_multihost_step(1, 0, device=dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    alone = multihost.run_multihost_step(1, 0, device=dev)
+    dp = {"nccl_group_of_one": grouped, "no_group": alone,
+          "max_rel_diff": max(abs(a - b) / abs(b) for a, b in zip(grouped["losses"],
+                                                                   alone["losses"]))}
+    check(dp["max_rel_diff"] <= 1e-6 and grouped["n_devices"] == 1,
+          f"vae: the NCCL step differs from the plain one {dp}")
+    report("vae", device=name, nvidia_smi=nvidia_smi(), batch=VAE_BATCH, widths=VAE_WIDTHS,
+           pack2_widths=VAE_P2_WIDTHS, rows=VAE_ROWS, tol=SLICE_TOL, grad_gap_tol=TRAIN_GRAD_GAP,
+           routes=routes, tf32=tf32, launches=launches, kernel_h_shapes=sorted(set(seen)), blocks=blocks,
+           vae_train_step_ms=step_ms, vae_train_step_profile=profile, families=families,
+           drivers=drivers, iwae_nll=nll, optimum_nats=BITS_NATS, freyfaces_bpd_ll=bpd,
+           data_parallel=dp, launches_counted=counted, phase_seconds=time.perf_counter() - t0)
+    return blocks, counted
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2865,6 +3242,7 @@ def main() -> None:
            toy=toy_t,
            toy_train_step_profile=toy_profile)
     mono_t, mono_launches = phase_monotonic(dev, name, batches[0])
+    vae_t, vae_launches = phase_vae(dev, name)
     # last: its ~50,000 unprofiled launches and long traces came before
     # phase wide's exact-count traces once, and one of those lost launches
     sample_res, sample_launches = phase_sample(dev, name)
@@ -2895,7 +3273,12 @@ def main() -> None:
                 "uci_step_K101": uci_launches["step_K101"][kernel],
                 "uci_driver_run": uci_driver_launches[kernel],
                 "monotonic": mono_launches[kernel],
+                "vae": vae_launches[kernel],
                 "sample": sample_launches[kernel]}
+
+    def vae_times(kernel):
+        """The kernel at the VAE's blocks: device ms a launch beside its bound."""
+        return {label: block[kernel] for label, block in vae_t.items() if kernel in block}
 
     def sample_times(kernel):
         """The forward kernel at the sample phase's shapes: device ms a
@@ -2913,25 +3296,29 @@ def main() -> None:
               fwd_plain_ms, fwd_bound, launches["integrand_fwd"],
               launches_by_phase={"train_step": launches["integrand_fwd"],
                                  "monotonic": mono_launches["integrand_fwd"],
+                                 "vae": vae_launches["integrand_fwd"],
                                  "sample": sample_launches["integrand_fwd"]},
-              monotonic=mono_t["integrand_fwd"], sample=sample_times("integrand_fwd")),
+              monotonic=mono_t["integrand_fwd"], vae=vae_times("integrand_fwd"),
+              sample=sample_times("integrand_fwd")),
         entry("integrand_bwd", "_bwd_kernel", 156, bwd_errs, bwd_ms, bwd_device_ms,
               bwd_plain_ms, bwd_bound, launches["integrand_bwd"],
               launches_by_phase={"train_step": launches["integrand_bwd"],
-                                 "monotonic": mono_launches["integrand_bwd"]},
-              monotonic=mono_t["integrand_bwd"]),
+                                 "monotonic": mono_launches["integrand_bwd"],
+                                 "vae": vae_launches["integrand_bwd"]},
+              monotonic=mono_t["integrand_bwd"], vae=vae_times("integrand_bwd")),
         # the calibration block's figures; the UCI driver's blocks in "uci"
         entry("integrand_fwd_p2", "_fwd_kernel_p2", 333, {**fwd_p2_errs, **uci_fwd_errs},
               calib_t["fwd_p2_ms"], calib_t["fwd_p2_device_ms"], calib_t["fwd_plain_ms"],
               fwd_p2_bound, calib_launches["integrand_fwd_p2"],
               launches_by_phase=p2_launches("integrand_fwd_p2"),
               uci={k: v["fwd"] for k, v in uci_blocks_t.items()},
-              sample=sample_times("integrand_fwd_p2")),
+              vae=vae_times("integrand_fwd_p2"), sample=sample_times("integrand_fwd_p2")),
         entry("integrand_bwd_p2", "_bwd_kernel_p2", 384, {**bwd_p2_errs, **uci_bwd_errs},
               calib_t["bwd_p2_ms"], calib_t["bwd_p2_device_ms"], calib_t["bwd_plain_ms"],
               bwd_p2_bound, calib_launches["integrand_bwd_p2"],
               launches_by_phase=p2_launches("integrand_bwd_p2"),
-              uci={k: v["bwd"] for k, v in uci_blocks_t.items() if "bwd" in v}),
+              uci={k: v["bwd"] for k, v in uci_blocks_t.items() if "bwd" in v},
+              vae=vae_times("integrand_bwd_p2")),
         entry("integrand_fwd_p4", "_fwd_kernel_pn", 522, fwd_p4_errs,
               toy_block["fwd_p4_ms"], toy_block["fwd_p4_device_ms"], toy_block["fwd_plain_ms"],
               toy_block["fwd_bound"], toy_launches["integrand_fwd_p4"],

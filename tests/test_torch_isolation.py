@@ -232,6 +232,15 @@ PUBLIC_CONSTRUCTORS = {
     "UMNNMAFFlow": "flow.UMNNMAFFlow(nb_in=3, hidden_embedding=(6,), hidden_derivative=(4,){dev})",
     "IntegrandNN": "monotonic.IntegrandNN(3, (4,), gen{dev})",
     "MonotonicNN": "monotonic.MonotonicNN(3, (4,){dev})",
+    "GatedConv2d": "vlayers.GatedConv2d(1, 2, 3, gen{dev})",
+    "GatedConvTranspose2d": "vlayers.GatedConvTranspose2d(2, 1, 3, gen, 2, 1, 1{dev})",
+    "MaskedLinear": "vlayers.MaskedLinear(2, 4, gen{dev})",
+    "MaskedConv2d": "vlayers.MaskedConv2d(2, 4, gen{dev})",
+    "IAF": "vflows.IAF(2, h_size=4{dev})",
+    "MMAF": "vflows.MMAF(2, 1, 3, (4,), (6,), 2, 5{dev})",
+    **{f"vae.{name}": f"vae.VAE_FAMILIES[{name!r}](z_size=2{{dev}})"
+       for name in ("no_flow", "planar", "orthogonal", "householder", "triangular", "iaf",
+                    "MMAF")},
 }
 
 
@@ -243,11 +252,15 @@ def test_public_constructor_without_device_raises_when_cuda_is_absent(name, monk
     import torch
 
     from umnn_tpu_torch.models import flow, monotonic, umnn_maf
+    from umnn_tpu_torch.models.vae import flows as vflows
+    from umnn_tpu_torch.models.vae import layers as vlayers
+    from umnn_tpu_torch.models.vae import vae
     from umnn_tpu_torch.nn import core, made
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scope = {"core": core, "made": made, "umnn_maf": umnn_maf, "flow": flow,
-             "monotonic": monotonic, "gen": torch.Generator().manual_seed(0)}
+             "monotonic": monotonic, "vflows": vflows, "vlayers": vlayers, "vae": vae,
+             "gen": torch.Generator().manual_seed(0)}
     call = PUBLIC_CONSTRUCTORS[name]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eval(call.format(dev=""), scope)
@@ -263,6 +276,55 @@ def test_source_scan_covers_the_monotonic_slice():
         "umnn_tpu_torch/utils/profiling.py", "umnn_tpu_torch/utils/visualize.py",
         "umnn_tpu_torch/utils/logging.py", "umnn_tpu_torch/ops/quadrature.py",
         "umnn_tpu_torch/bridge.py",
+    } <= scanned
+
+
+def test_vae_driver_runs_without_jax_and_refuses_a_missing_card(tmp_path):
+    proc = _run(f"""
+import runpy
+sys.argv = ["train_vae", "-flow", "MMAF", "-synthetic", "-nb_epoch", "1", "-folder", {str(tmp_path)!r}]
+runpy.run_module("umnn_tpu_torch.examples.train_vae", run_name="__main__")
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+    assert not any(tmp_path.iterdir())  # refused before writing anything
+
+
+def test_multihost_step_refuses_a_missing_card():
+    proc = _run("""
+from umnn_tpu_torch.parallel import multihost
+multihost.run_multihost_step(1, 0)
+""")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "blocked in this test" not in proc.stderr
+
+
+def test_vae_slice_runs_on_the_cpu_without_jax(tmp_path):
+    """The VAE stack and the data-parallel layer import and run, with jax and
+    umnn_tpu blocked: the driver for one epoch, the one-process step."""
+    out = _ok(_run(f"""
+from umnn_tpu_torch.examples import train_vae
+from umnn_tpu_torch.models.vae import distributions, flows, iwae, layers, losses, vae
+from umnn_tpu_torch.parallel import mesh, multihost
+argv = ("-device cpu -synthetic -flow iaf -z_size 4 -made_h_size 8 -num_flows 1 -nb_epoch 1 "
+        "-iwae_samples 4 -iwae_minibatch 2 -iwae_test_points 2 -plot_every 0 "
+        "-folder {tmp_path}").split()
+rc = train_vae.main(argv)
+res = multihost.run_multihost_step(1, 0, device="cpu")
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "umnn_tpu")]
+print(rc, len(res["losses"]))
+"""))
+    assert out.strip().splitlines()[-1] == "0 3"
+
+
+def test_source_scan_covers_the_vae_slice():
+    scanned = {p.relative_to(ROOT).as_posix() for p in PACKAGE.rglob("*.py")}
+    assert {
+        f"umnn_tpu_torch/models/vae/{m}.py"
+        for m in ("distributions", "layers", "flows", "vae", "losses", "iwae")
+    } | {
+        "umnn_tpu_torch/examples/train_vae.py", "umnn_tpu_torch/parallel/mesh.py",
+        "umnn_tpu_torch/parallel/multihost.py",
     } <= scanned
 
 

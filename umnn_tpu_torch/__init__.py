@@ -11,8 +11,11 @@ the optimizer, train, accumulation and evaluation steps
 with the JAX package (``training.checkpoint``, ``training.resume``), the
 validity report, profiling and plots (``utils``); the 2-D toy densities,
 the UCI datasets, MNIST and their seeded stand-ins and downloader
-(``data``); the MNIST, calibration, toy, UCI and monotonic drivers
-(``examples``); and the hand-written CUDA kernels of the fused integrand
+(``data``); the VAE stack with its six flow posteriors, the UMNN MMAF
+among them, ELBO and IWAE (``models.vae``), and its four datasets; the
+data-parallel layer over ``torch.distributed`` (``parallel``); the MNIST,
+calibration, toy, UCI, monotonic and VAE drivers (``examples``); and the
+hand-written CUDA kernels of the fused integrand
 sweep, forward and backward: one pair for any width, a pair that takes
 two nodes at a time for integrands at most 64 wide, a pair that takes
 four at a time for integrands at most 32 wide, and a streamed pair for

@@ -12,6 +12,16 @@ The files are read from ``<root>/mnist``, ``root`` being
 ``$UMNN_DATA_ROOT`` or ``datasets/data``; :mod:`umnn_tpu_torch.data.download`
 writes them there. The same seed gives the same arrays, bit for bit, as the
 JAX package's.
+
+The VAE datasets (`:192-337`): ``VAEImageData``, static binarized MNIST
+(``.amat`` files under ``<root>/mnist_static``), Freyfaces
+(``freyfaces/freyfaces.pkl``), Omniglot (``omniglot/chardata.mat``) and
+Caltech 101 Silhouettes (``caltech/caltech101_silhouettes_28_split1.mat``),
+with JAX's rule for their seeded stand-ins: ``synthetic=True`` takes the
+stand-in, ``False`` raises where the file is absent, ``None`` takes the
+file where it is present and else the stand-in. Omniglot binarizes its
+validation and test splits once through ``np.random.seed(777)``, which
+resets numpy's global generator as the JAX package's loader does.
 """
 
 from __future__ import annotations
@@ -29,9 +39,16 @@ __all__ = [
     "ALPHA",
     "DEFAULT_ROOT",
     "FlowImageData",
+    "VAEImageData",
+    "VAE_DATASETS",
     "add_uniform_noise_and_logit",
     "load_mnist_flow",
+    "load_caltech",
+    "load_freyfaces",
     "load_mnist_raw",
+    "load_omniglot",
+    "load_static_mnist",
+    "load_vae_dataset",
     "logit_back",
     "synthetic_mnist_ar1",
 ]
@@ -191,3 +208,131 @@ def synthetic_mnist_ar1(
     floor = true_bpp(x[n1 + n2 :], z[n1 + n2 :])
     data = FlowImageData(splits[0], zeros[0], splits[1], zeros[1], splits[2], zeros[2])
     return data, floor
+
+
+# --- the VAE datasets (`umnn_tpu/data/images.py:192-337`) -----------------------
+
+
+@dataclasses.dataclass
+class VAEImageData:
+    trn: np.ndarray  # [N, C*H*W] float32 in [0, 1]
+    val: np.ndarray
+    tst: np.ndarray
+    input_size: tuple[int, ...]
+    input_type: str  # "binary" or "multinomial"
+    # a bernoulli(data) draw per training batch, Omniglot's
+    dynamic_binarization: bool = False
+
+
+def _synthetic_images(input_size, input_type, seed=0, n=(600, 100, 100), dynamic_binarization=False):
+    rng = np.random.RandomState(seed)
+    c, h, w = input_size
+    outs = []
+    for i, count in enumerate(n):
+        x = rng.rand(count, c * h * w)
+        if input_type == "binary":
+            if dynamic_binarization and i == 0:
+                # the train split stays real-valued: the training loop draws
+                # bernoulli(x) per batch, as for the real Omniglot
+                x = x.astype(np.float32)
+            else:
+                x = (x > 0.5).astype(np.float32)
+        else:
+            x = (np.floor(x * 256) / 255.0).astype(np.float32)
+        outs.append(x)
+    return VAEImageData(*outs, tuple(input_size), input_type,
+                        dynamic_binarization=dynamic_binarization)
+
+
+def _pick(path: Path, synthetic) -> bool:
+    """Whether to take the stand-in: JAX's three-way rule."""
+    if synthetic is True or not path.exists():
+        if synthetic is False:
+            raise FileNotFoundError(path)
+        return True
+    return False
+
+
+def load_static_mnist(root=DEFAULT_ROOT, synthetic=None) -> VAEImageData:
+    """Larochelle's static binarized MNIST from ``.amat`` files."""
+    d = Path(root) / "mnist_static"
+    files = {"trn": "binarized_mnist_train.amat", "val": "binarized_mnist_valid.amat",
+             "tst": "binarized_mnist_test.amat"}
+    if _pick(d / files["trn"], synthetic):
+        return _synthetic_images((1, 28, 28), "binary")
+    splits = {k: np.loadtxt(d / v, dtype=np.float32) for k, v in files.items()}
+    return VAEImageData(splits["trn"], splits["val"], splits["tst"], (1, 28, 28), "binary")
+
+
+def load_freyfaces(root=DEFAULT_ROOT, seed=123, synthetic=None) -> VAEImageData:
+    """Freyfaces: a seeded shuffle, 1565/200/200 splits, values / 255
+    (multinomial)."""
+    p = Path(root) / "freyfaces" / "freyfaces.pkl"
+    if _pick(p, synthetic):
+        return _synthetic_images((1, 28, 20), "multinomial")
+    import pickle
+
+    with open(p, "rb") as f:
+        data = pickle.load(f, encoding="latin1")[0]
+    data = (data / 255.0).astype(np.float32)
+    np.random.RandomState(seed).shuffle(data)
+    return VAEImageData(data[:1565], data[1565:1765], data[1765:1965], (1, 28, 20),
+                        "multinomial")
+
+
+def _fortran_reshape(data: np.ndarray) -> np.ndarray:
+    """The column-major unflatten of the Omniglot and Caltech files."""
+    return data.reshape((-1, 28, 28)).reshape((-1, 28 * 28), order="F")
+
+
+def load_omniglot(root=DEFAULT_ROOT, seed=0, synthetic=None) -> VAEImageData:
+    """Omniglot: Fortran-order images, a shuffled 1345-row validation split;
+    the train split stays real-valued (binarized per batch in training),
+    validation and test are binarized once under numpy's global seed 777."""
+    p = Path(root) / "omniglot" / "chardata.mat"
+    if _pick(p, synthetic):
+        return _synthetic_images((1, 28, 28), "binary", dynamic_binarization=True)
+    from scipy.io import loadmat
+
+    raw = loadmat(p)
+    trn = _fortran_reshape(raw["data"].T.astype(np.float32))
+    tst = _fortran_reshape(raw["testdata"].T.astype(np.float32))
+    idx = np.random.RandomState(seed).permutation(len(trn))
+    n_val = 1345
+    x_trn, x_val = trn[idx[:-n_val]], trn[idx[-n_val:]]
+    np.random.seed(777)  # the reference's fixed evaluation draw
+    x_val = np.random.binomial(1, x_val).astype(np.float32)
+    tst = np.random.binomial(1, tst).astype(np.float32)
+    return VAEImageData(x_trn, x_val, tst, (1, 28, 28), "binary", dynamic_binarization=True)
+
+
+def load_caltech(root=DEFAULT_ROOT, synthetic=None) -> VAEImageData:
+    """Caltech 101 Silhouettes, polarity inverted, Fortran-order images."""
+    p = Path(root) / "caltech" / "caltech101_silhouettes_28_split1.mat"
+    if _pick(p, synthetic):
+        return _synthetic_images((1, 28, 28), "binary")
+    from scipy.io import loadmat
+
+    raw = loadmat(p)
+    return VAEImageData(
+        1.0 - _fortran_reshape(raw["train_data"].astype(np.float32)),
+        1.0 - _fortran_reshape(raw["val_data"].astype(np.float32)),
+        1.0 - _fortran_reshape(raw["test_data"].astype(np.float32)),
+        (1, 28, 28),
+        "binary",
+    )
+
+
+VAE_DATASETS = {
+    "mnist": load_static_mnist,
+    "freyfaces": load_freyfaces,
+    "omniglot": load_omniglot,
+    "caltech": load_caltech,
+}
+
+
+def load_vae_dataset(name: str, root=DEFAULT_ROOT, synthetic=None) -> VAEImageData:
+    """One of ``VAE_DATASETS`` by name."""
+    if name not in VAE_DATASETS:
+        raise ValueError(f"unknown dataset {name}; choose from {sorted(VAE_DATASETS)}")
+    return VAE_DATASETS[name](root=root, synthetic=synthetic)

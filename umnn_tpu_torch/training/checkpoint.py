@@ -14,7 +14,7 @@ PyTorch counterpart of `umnn_tpu/training/checkpoint.py`, with
 * :func:`save_params_npz` / :func:`load_params_npz` (`:127-169`) write and
   read the float16 snapshots of the JAX package's ``-load_npz`` flag in
   JAX's leaf order, so that a file written by either package loads in the
-  other.
+  other; for a flow or any VAE family (the MMAF's flow subtree as a flow's).
 """
 
 from __future__ import annotations
@@ -28,7 +28,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from umnn_tpu_torch.bridge import flow_params_to_numpy, load_jax_flow_params
+from umnn_tpu_torch.bridge import (
+    flow_params_to_numpy,
+    load_jax_flow_params,
+    load_jax_vae_params,
+    vae_params_to_numpy,
+)
+from umnn_tpu_torch.models.flow import UMNNMAFFlow
 
 __all__ = ["BestTracker", "CheckpointManager", "load_params_npz", "save_params_npz"]
 
@@ -144,8 +150,16 @@ def _treedef(tree) -> str:
     return f"PyTreeDef({inner(tree)})"
 
 
+def _to_numpy(model):
+    """The model's JAX-layout tree: a flow's, else a VAE's."""
+    if isinstance(model, UMNNMAFFlow):
+        return flow_params_to_numpy(model)
+    return vae_params_to_numpy(model)
+
+
 def save_params_npz(path: str | Path, flow, dtype=np.float16) -> Path:
-    """Write the flow's parameters as one compressed file (default float16).
+    """Write the parameters of a flow or a VAE as one compressed file
+    (default float16).
 
     The leaves are those of the JAX package's flow parameters, in its order
     (per block ``net`` then ``scaling``; in ``net``, ``integrand`` then
@@ -154,7 +168,7 @@ def save_params_npz(path: str | Path, flow, dtype=np.float16) -> Path:
     scaling, a buffer here, is one of them.
     """
     path = Path(path)
-    params = flow_params_to_numpy(flow)
+    params = _to_numpy(flow)
     arrays = {f"leaf_{i}": x.astype(dtype) for i, x in enumerate(_flatten(params))}
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, __treedef__=np.array(_treedef(params)), **arrays)
@@ -163,10 +177,10 @@ def save_params_npz(path: str | Path, flow, dtype=np.float16) -> Path:
 
 def load_params_npz(path: str | Path, flow):
     """Load a :func:`save_params_npz` snapshot, or one the JAX package
-    wrote, into ``flow`` in place (float32). Leaf count and shapes must
-    match the flow's: a mismatch means the snapshot came from another model
-    configuration."""
-    template = flow_params_to_numpy(flow)
+    wrote, into ``flow`` (a flow or a VAE) in place (float32). Leaf count
+    and shapes must match the model's: a mismatch means the snapshot came
+    from another model configuration."""
+    template = _to_numpy(flow)
     leaves = _flatten(template)
     with np.load(path) as data:
         n = sum(1 for k in data.files if k.startswith("leaf_"))
@@ -178,7 +192,10 @@ def load_params_npz(path: str | Path, flow):
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{path}: leaf_{i} shape {arr.shape} != template {leaf.shape}")
             new.append(arr.astype(np.float32))
-    return load_jax_flow_params(flow, _unflatten(template, iter(new)))
+    tree = _unflatten(template, iter(new))
+    if isinstance(flow, UMNNMAFFlow):
+        return load_jax_flow_params(flow, tree)
+    return load_jax_vae_params(flow, tree)
 
 
 @dataclasses.dataclass

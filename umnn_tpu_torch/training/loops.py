@@ -5,9 +5,13 @@ PyTorch counterpart of `umnn_tpu/training/loops.py`: ``make_optimizer``
 ``finite_mean`` (`:194-207`), the gradient-accumulation step
 (`:209-256`), the evaluation step (`:259-266`), ``ReduceLROnPlateau``
 (`:270-307`) and ``batch_iter`` (`:310-332`); the step's ``post_update``
-(`:128`, `:174-175`) carries the Lipschitz projection. Not ported, by
+(`:128`, `:174-175`) carries the Lipschitz projection, and its
+``has_aux`` returns the loss function's auxiliary values (`:127`). Under a
+``torch.distributed`` process group the step is data-parallel, as JAX's
+single SPMD step over a mesh is: each rank's gradients are all-reduced and
+divided by the world size before the clip and the guard. Not ported, by
 decision: the retry of transient compile failures (a TPU workaround) and
-the mesh shardings (one card).
+the mesh shardings.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "Optimizer",
@@ -107,13 +112,49 @@ def _grads_finite(loss: torch.Tensor, params: Iterable[torch.Tensor]) -> torch.T
     return torch.stack(flags).all()
 
 
+def _detach(tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detach(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
+def _all_reduce_mean(loss: torch.Tensor, params: list, group) -> torch.Tensor:
+    """Each gradient and the loss replaced by their means over ``group``'s
+    ranks, in one all-reduce. A parameter without a gradient keeps none, as
+    the optimizer skips it on one process; every rank runs the same graph,
+    so every rank has the same set."""
+    world = dist.get_world_size(group)
+    params = [p for p in params if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=group)
+    flat.div_(world)
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.grad.copy_(flat[offset : offset + n].view_as(p.grad))
+        offset += n
+    return flat[-1]
+
+
 def make_train_step(
     loss_fn: Callable[..., torch.Tensor],
     optimizer: Optimizer,
     post_update: Optional[Callable[..., None]] = None,
+    has_aux: bool = False,
+    process_group=None,
 ) -> Callable[..., torch.Tensor]:
     """``step(batch, *extras) -> loss``: ``loss_fn(batch, *extras)``,
-    backward, clip, update.
+    backward, clip, update. With ``has_aux``, ``loss_fn`` returns ``(loss,
+    aux)`` and the step ``(loss, aux)``, ``aux`` detached.
+
+    ``process_group`` (a ``torch.distributed`` group, e.g.
+    ``torch.distributed.group.WORLD``): the gradients and the loss are
+    all-reduced and divided by the world size right after the backward, so
+    every rank clips the global gradient, takes the same branch of the
+    guard and returns the mean loss. Each rank's ``loss_fn`` is the mean
+    over its own rows, an equal share of the global batch.
 
     Non-finite guard: when the loss or any gradient is not finite, the
     update is skipped and the parameters, Adam's moments and its step count
@@ -126,15 +167,19 @@ def make_train_step(
     (`UCIExperiments.py:145-147`). It changes the parameters in place.
     """
 
-    def step(batch, *extras) -> torch.Tensor:
+    def step(batch, *extras):
         optimizer.zero_grad()
-        loss = loss_fn(batch, *extras)
+        out = loss_fn(batch, *extras)
+        loss, aux = out if has_aux else (out, None)
         loss.backward()
+        loss = loss.detach()
+        if process_group is not None:
+            loss = _all_reduce_mean(loss, optimizer.params, process_group)
         if bool(_grads_finite(loss, optimizer.params)):
             optimizer.step()
         if post_update is not None:
             post_update(*extras)
-        return loss.detach()
+        return (loss, _detach(aux)) if has_aux else loss
 
     return step
 
